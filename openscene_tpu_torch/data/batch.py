@@ -1,0 +1,98 @@
+"""Batch assembly for evaluation: scenes -> static-shape buffers + geometry.
+
+Counterpart of ``openscene_tpu/data/batch.py``, reduced to the eval path
+(reference ``collation_fn_eval_all``, dataset/feature_loader.py:191-233):
+
+* scenes are concatenated with a batch column, then spatially lex-sorted
+  (batch, x, y, z) so every conv gather reads nearby rows;
+* everything is padded to geometric capacity buckets (static shapes);
+* fused features are placed in a (cap0, D) buffer at their voxel rows;
+* per-point reconstruction indices are remapped through the sort
+  permutation and padded to their own bucket.
+
+The arrays are NumPy; :func:`openscene_tpu_torch.sparse.geometry_to_device`
+moves the geometry to a device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+
+from ..sparse.geometry import (GeometryCaps, _bucket, _pad_level,
+                               build_unet_geometry)
+from ..sparse.types import UNetGeometry
+from .loaders import SceneSample
+
+
+class EvalBatch(NamedTuple):
+    geo: UNetGeometry
+    feats: np.ndarray       # (cap0, 3)
+    feat_3d: np.ndarray     # (cap0, D) fused features at voxels (fp16)
+    mask: np.ndarray        # (cap0,) voxel has fused feature
+    labels: np.ndarray      # (ocap,) ORIGINAL per-point labels (255-padded)
+    inds_reconstruct: np.ndarray  # (ocap,) voxel row per original point
+    num_points: int
+    num_voxels: int
+
+
+def _concat_sort(samples: Sequence[SceneSample], shift: Optional[np.ndarray]):
+    """Concat scenes with batch ids, apply global shift, lex-sort spatially.
+
+    Returns (sorted coords (N,4), perm, inv_perm, scene voxel offsets)."""
+    coords_list = []
+    offsets = [0]
+    for b, s in enumerate(samples):
+        c = np.concatenate(
+            [np.full((len(s.coords), 1), b, dtype=np.int64),
+             s.coords.astype(np.int64)], axis=1)
+        coords_list.append(c)
+        offsets.append(offsets[-1] + len(c))
+    coords = np.concatenate(coords_list)
+    if shift is not None:
+        coords[:, 1:] += shift.astype(np.int64)
+    perm = np.lexsort((coords[:, 3], coords[:, 2], coords[:, 1], coords[:, 0]))
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return coords[perm], perm, inv, np.asarray(offsets)
+
+
+def assemble_eval_batch(samples: Sequence[SceneSample], dim: int,
+                        caps: Optional[GeometryCaps] = None,
+                        point_cap: Optional[int] = None,
+                        need_model: bool = True) -> EvalBatch:
+    """``need_model=False`` (fusion-mode eval) skips kernel-map construction
+    entirely — only the level-0 padding/reconstruction is needed."""
+    coords, perm, inv, offs = _concat_sort(samples, None)
+    n = len(coords)
+    if need_model:
+        geo = build_unet_geometry(coords,
+                                  caps=caps or GeometryCaps.for_count(n))
+    else:
+        caps = caps or GeometryCaps.for_count(n)
+        level0 = _pad_level(coords, caps.cap_for(0, n))
+        geo = UNetGeometry(levels=(level0,), stem=None, self3=(),
+                           down=(), wplans=())
+    cap0 = geo.levels[0].cap
+
+    feats = np.zeros((cap0, 3), dtype=np.float32)
+    feats[:n] = np.concatenate([s.feats for s in samples])[perm]
+    feat_3d = np.zeros((cap0, dim), dtype=np.float16)  # fp16 end to end
+    mask = np.zeros(cap0, dtype=np.float32)
+    if samples[0].feat_3d is not None:
+        feat_3d[:n] = np.concatenate(
+            [np.asarray(s.feat_3d, dtype=np.float16) for s in samples])[perm]
+        mask[:n] = np.concatenate([s.feat_mask for s in samples])[perm]
+
+    pts = np.concatenate([s.labels for s in samples])
+    n_pts = len(pts)
+    ocap = point_cap or _bucket(n_pts)
+    labels = np.full(ocap, 255, dtype=np.int32)
+    labels[:n_pts] = pts
+    inds = np.full(ocap, cap0 - 1, dtype=np.int32)  # padding -> null voxel
+    inds[:n_pts] = np.concatenate(
+        [inv[offs[b] + s.inds_reconstruct] for b, s in enumerate(samples)])
+    return EvalBatch(geo=geo, feats=feats, feat_3d=feat_3d, mask=mask,
+                     labels=labels, inds_reconstruct=inds, num_points=n_pts,
+                     num_voxels=n)

@@ -1,0 +1,328 @@
+"""Zero-shot open-vocabulary evaluation (fusion / distill / ensemble).
+
+Counterpart of ``openscene_tpu/runtime/evaluate.py`` (reference protocol
+``run/evaluate.py:224-425``), on one CUDA device by default:
+
+* per-point features (fused 2D, distilled 3D, or a confidence ensemble) are
+  matched to CLIP text embeddings by dot product; argmax = predicted class;
+* the ensemble keeps, per point, whichever feature's best normalized text
+  logit is higher, then classifies with the *unnormalized* chosen feature
+  (run/evaluate.py:302-324);
+* ``mark_no_feature_to_unknown``: points with no fused feature predict the
+  NO_FEATURE sentinel 256 in the final metric (fusion mode only);
+* ``test_repeats``: the whole pass re-runs with reseeded voxelization and
+  **summed logits** across repeats before the final argmax
+  (run/evaluate.py:263-278,414-425).
+
+Voxelization, batch assembly and geometry plans run on the host; the UNet
+forward, the ensemble and the text product run on the device.
+
+Run: ``python -m openscene_tpu_torch.runtime.evaluate --config <yaml>
+[--device cuda|cpu] [key value]*``
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import sys
+import time
+from os.path import join
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import metrics
+from ..config import Config, dataset_name_from_root, load_config
+from ..data.batch import EvalBatch, assemble_eval_batch
+from ..data.loaders import FusedFeatureLoader
+from ..device import resolve_device
+from ..labels import NO_FEATURE_ID, labelset_and_palette
+from ..models.disnet import build_disnet, output_dim
+from ..models.sparse_unet import MinkUNet
+from ..sparse.geometry import geometry_to_device
+from ..text import extract_text_features
+from ..utils.train_utils import get_logger
+
+log = get_logger()
+
+ENSEMBLE_EPS = 1e-5  # run/evaluate.py's normalisation guard
+
+
+def _normalize(f: torch.Tensor) -> torch.Tensor:
+    """``f / (||f|| + eps)`` in f's dtype; the sum of squares accumulates in
+    fp32 (as jnp.linalg.norm does for fp16 input)."""
+    norm = torch.sqrt((f * f).sum(-1, keepdim=True, dtype=torch.float32)
+                      .to(f.dtype))
+    return f / (norm + ENSEMBLE_EPS)
+
+
+def make_eval_step(mode: str, compute_dtype=torch.bfloat16,
+                   constant_input: bool = True,
+                   return_features: bool = False):
+    """Build the per-batch step ``step(model, text, batch)``.
+
+    ``text`` is the (num_classes, D) fp32 embedding tensor on the device the
+    step runs on; ``batch`` an :class:`EvalBatch` of host arrays.  Returns
+    device tensors (point_logits, point_feat_mask[, point_features]); the
+    optional third output is the per-point feature matrix the reference
+    saves with ``save_feature_as_numpy`` (model output for distill, fused
+    feature for fusion, the blended ``feat_ensemble`` for ensemble)."""
+
+    @torch.no_grad()
+    def step(model: Optional[MinkUNet], text: torch.Tensor,
+             batch: EvalBatch):
+        device = text.device
+        text_t = text.t().float()
+
+        def model_features():
+            geo = geometry_to_device(batch.geo, device)
+            x = torch.as_tensor(batch.feats, device=device).to(compute_dtype)
+            return model(x, geo, constant_input=constant_input)  # fp32
+
+        fused = torch.as_tensor(batch.feat_3d, device=device)  # fp16
+        if mode == "distill":
+            feat_v = model_features()
+            pred_v = feat_v @ text_t
+        elif mode == "fusion":
+            feat_v = fused.float()
+            pred_v = feat_v @ text_t
+        elif mode == "ensemble":
+            out = model_features()
+            logit_d = _normalize(out) @ text_t
+            logit_f = _normalize(fused).float() @ text_t
+            use_fusion = logit_d.amax(-1) < logit_f.amax(-1)
+            feat_v = torch.where(use_fusion[:, None], fused.float(), out)
+            pred_v = feat_v @ text_t
+        else:
+            raise NotImplementedError(mode)
+
+        inds = torch.as_tensor(batch.inds_reconstruct, device=device).long()
+        point_logits = pred_v.index_select(0, inds)
+        point_mask = torch.as_tensor(batch.mask, device=device
+                                     ).index_select(0, inds)
+        if return_features:
+            return point_logits, point_mask, feat_v.index_select(0, inds)
+        return point_logits, point_mask
+
+    return step
+
+
+class ZeroShotEvaluator:
+    def __init__(self, cfg: Config, model: Optional[MinkUNet] = None,
+                 text_features: Optional[np.ndarray] = None,
+                 allow_pseudo_text: bool = False, device=None):
+        if cfg.data_parallel > 1:
+            raise NotImplementedError(
+                "multi-device eval (data_parallel > 1) is not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dim = (int(np.asarray(text_features).shape[1])
+                    if text_features is not None
+                    else output_dim(cfg.feature_2d_extractor))
+        self.labelset_name = cfg.labelset or dataset_name_from_root(cfg.data_root)
+        labels, palette, mapper = labelset_and_palette(
+            self.labelset_name, cfg.map_nuscenes_details)
+        self.class_labels, self.palette, self.mapper = labels, palette, mapper
+        if text_features is None:
+            text_features = extract_text_features(
+                labels, cfg.feature_2d_extractor, cfg.data_root,
+                cfg.prompt_eng, cfg.text_embedding_cache,
+                embedding_file=cfg.embedding_file,
+                allow_pseudo=allow_pseudo_text or cfg.allow_pseudo_text,
+                dataset_name=self.labelset_name)
+        self.text = torch.as_tensor(
+            np.asarray(text_features, dtype=np.float32), device=self.device)
+        # reference appends 'unlabeled' AFTER text extraction
+        self.labelset_full = labels + ["unlabeled"]
+        self.mode = cfg.feature_type
+        if self.mode != "fusion" and model is None:
+            raise ValueError(f"feature_type={self.mode!r} needs a model")
+        self.model = None if model is None else model.to(self.device).eval()
+        if cfg.vis_input or cfg.vis_pred or cfg.vis_gt:
+            raise NotImplementedError(
+                "vis_input/vis_pred/vis_gt exports are not ported yet")
+        self.step = make_eval_step(self.mode,
+                                   constant_input=not cfg.input_color)
+        self.mark_unknown = (cfg.mark_no_feature_to_unknown
+                             and self.mode == "fusion")
+
+    def _loader(self) -> FusedFeatureLoader:
+        return FusedFeatureLoader(
+            datapath_prefix=self.cfg.data_root,
+            datapath_prefix_feat=self.cfg.data_root_2d_fused_feature,
+            voxel_size=self.cfg.voxel_size, split=self.cfg.split, aug=False,
+            memcache=self.cfg.use_shm, eval_all=True, identifier=6797,
+            input_color=self.cfg.input_color)
+
+    def run(self, save_features_to: str = "") -> Dict[str, float]:
+        cfg = self.cfg
+        loader = self._loader()
+        n_scenes = len(loader.data_paths)
+        is_nuscenes = "nuscenes" in self.labelset_name
+        results: Dict[str, float] = {}
+        store: Optional[List[np.ndarray]] = None
+        rng = np.random.default_rng(cfg.manual_seed)
+
+        step = self.step
+        if save_features_to:
+            step = make_eval_step(self.mode,
+                                  constant_input=not cfg.input_color,
+                                  return_features=True)
+            os.makedirs(save_features_to, exist_ok=True)
+
+        for rep in range(cfg.test_repeats):
+            if rep > 0:
+                loader.reseed(int(rng.integers(10000)))
+            preds, gts, masks = [], [], []
+            t0 = time.time()
+            if cfg.test_workers > 1:  # host voxelize/assemble ahead of device
+                from ..data.prefetch import Prefetcher
+                samples = Prefetcher(loader.get, range(n_scenes),
+                                     workers=cfg.test_workers)
+            else:
+                samples = (loader.get(i) for i in range(n_scenes))
+            for i, sample, out, n_pts in self._scene_outputs(samples, step):
+                logits = out[0][:n_pts].float().cpu().numpy()
+                pmask = out[1][:n_pts].cpu().numpy() > 0.5
+                label = np.asarray(sample.labels[:n_pts])
+                if save_features_to and rep == 0:
+                    # per-point FEATURE dump (reference run/evaluate.py:
+                    # 302-331), saved before any nuScenes point subsetting,
+                    # named by scene (run/evaluate.py:329)
+                    scene_name = os.path.basename(
+                        str(loader.data_paths[i])).rsplit(".", 1)[0]
+                    feat_dtype = (np.float32 if self.mode == "distill"
+                                  else np.float16)
+                    np.save(join(save_features_to,
+                                 f"{scene_name}_openscene_feat_{self.mode}.npy"),
+                            out[2][:n_pts].float().cpu().numpy()
+                            .astype(feat_dtype))
+                if is_nuscenes:  # evaluation points are a labeled subset
+                    keep = label != 255
+                    label, logits, pmask = label[keep], logits[keep], pmask[keep]
+                preds.append(logits)
+                gts.append(label)
+                masks.append(pmask)
+            log.info("repeat %d/%d: %d scenes in %.1fs", rep + 1,
+                     cfg.test_repeats, n_scenes, time.time() - t0)
+
+            if not cfg.eval_iou:
+                # no-GT datasets (Replica): feature export only
+                results["miou"] = float("nan")
+                return results
+
+            gt = np.concatenate(gts)
+            mask = np.concatenate(masks)
+            pred_logits = preds
+            if store is None:
+                store = [p.copy() for p in pred_logits]
+            elif rep > 0:
+                for s, p in zip(store, pred_logits):
+                    s += p
+
+            cur = self._metric(np.concatenate(pred_logits), gt, mask)
+            results[f"repeat_{rep}"] = cur
+            if cfg.test_repeats > 1:
+                acc = self._metric(np.concatenate(store), gt, mask)
+                results["accumulated"] = acc
+                log.info("repeat %d mIoU=%.4f accumulated mIoU=%.4f",
+                         rep + 1, cur, acc)
+            else:
+                results["accumulated"] = cur
+                log.info("mIoU=%.4f", cur)
+        results["miou"] = results["accumulated"]
+        return results
+
+    def _scene_outputs(self, samples, step):
+        """Yield (scene_idx, sample, step_outputs, n_points), one scene at a
+        time on the evaluator's device."""
+        need_model = self.mode != "fusion"
+        for i, sample in enumerate(samples):
+            batch = assemble_eval_batch([sample], self.dim,
+                                        need_model=need_model)
+            out = step(self.model, self.text, batch)
+            yield i, sample, out, batch.num_points
+
+    def _metric(self, logits: np.ndarray, gt: np.ndarray,
+                mask: np.ndarray) -> float:
+        pred = logits.argmax(1)
+        if self.mapper is not None:
+            pred = self.mapper[pred]
+        if self.mark_unknown:
+            pred = np.where(mask, pred, NO_FEATURE_ID)
+        return metrics.evaluate(pred, gt, dataset=self.labelset_name,
+                                stdout=False)
+
+
+def load_model_for_eval(cfg: Config, device=None) -> Optional[MinkUNet]:
+    """Model init + checkpoint load (skipped entirely in fusion mode,
+    run/evaluate.py:164-165).
+
+    ``cfg.model_path`` may be a reference ``.pth(.tar)`` checkpoint with
+    MinkowskiEngine names (converted) or a torch file holding the port's own
+    ``MinkUNet`` state_dict (loaded as is).  Without a path the weights are
+    random, drawn from ``cfg.manual_seed``."""
+    if cfg.feature_type == "fusion":
+        return None
+    dev = resolve_device(device)
+    model = build_disnet(cfg, torch.Generator().manual_seed(cfg.manual_seed))
+    path = cfg.model_path
+    if path and "://" in path:
+        raise NotImplementedError(
+            f"checkpoint URLs are not fetched ({path}); pass a local path")
+    if path and os.path.isfile(path):
+        try:
+            payload = torch.load(path, map_location="cpu",
+                                 weights_only=False)
+        except pickle.UnpicklingError as e:
+            raise NotImplementedError(
+                f"{path} is not a torch checkpoint; the JAX package's "
+                "flax-msgpack checkpoints are not readable yet") from e
+        sd = payload.get("state_dict", payload) if isinstance(payload, dict) \
+            else payload
+        if set(sd) == set(model.state_dict()):
+            model.load_state_dict(sd)
+            log.info("loaded port state_dict %s", path)
+        else:
+            from ..convert import params_from_jax
+            from ..utils.convert_checkpoint import convert_state_dict
+            sd = {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
+                  for k, v in sd.items()}
+            order = cfg.region_order or "x_fastest"
+            params, state = convert_state_dict(sd, cfg.arch_3d,
+                                               region_order=order)
+            model.load_state_dict(params_from_jax(params, state,
+                                                  cfg.arch_3d))
+            log.info("converted reference checkpoint %s (region order %s)",
+                     path, order)
+    elif path:
+        raise FileNotFoundError(path)
+    return model.to(dev).eval()
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    cfg_path = None
+    device = None
+    rest = []
+    it = iter(argv)
+    for a in it:
+        if a == "--config" or a.startswith("--config="):
+            cfg_path = a.split("=", 1)[1] if "=" in a else next(it)
+        elif a == "--device" or a.startswith("--device="):
+            device = a.split("=", 1)[1] if "=" in a else next(it)
+        else:
+            rest.append(a)
+    cfg = load_config(cfg_path, tuple(rest))
+    model = load_model_for_eval(cfg, device)
+    ev = ZeroShotEvaluator(cfg, model, device=device)
+    out_dir = cfg.save_folder if cfg.save_feature_as_numpy else ""
+    results = ev.run(save_features_to=out_dir)
+    log.info("final mIoU: %.4f", results["miou"])
+    return results
+
+
+if __name__ == "__main__":
+    main()
