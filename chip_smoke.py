@@ -7,11 +7,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    CUDA kernel of the port from ``openscene_tpu_torch/csrc`` with ``nvcc``
    into ``build/kernels``;
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (tolerance: one bf16 ulp of the output scale,
-   ``2**-7 * max|plain|``; padded rows exactly zero) and times the kernel,
-   the plain version and a library yardstick (one ``index_select`` + one
-   ``torch.matmul``, the im2col formulation, which the port never calls);
-3. drives the main path: zero-shot evaluation of MinkUNet18A at 768-d
+   main paths' shapes (forward kernels on scene 0's geometry, backward
+   kernels on the first train batch's; tolerance: one bf16 ulp of the output
+   scale, ``2**-7 * max|plain|``, for activations and input gradients, with
+   padded rows exactly zero; ``1e-4`` of the scale for the fp32 weight
+   gradients, which differ only in the order of their fp32 sums) and times
+   the kernel, the plain version and a library yardstick (``index_select``
+   + ``torch.matmul``, the im2col formulation, which the port never calls);
+3. drives the serving path: zero-shot evaluation of MinkUNet18A at 768-d
    OpenSeg width through ``runtime.evaluate.ZeroShotEvaluator`` on ``cuda``,
    in ensemble and distill modes, on 2 synthetic ScanNet-like scenes at 2 cm
    (about 125k voxels each), random weights from a seed and pseudo text
@@ -20,7 +23,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    and the down-conv kernel 4 times per scene forward.  The outputs must be
    finite, and one scene's logits from the kernel path must match the same
    model run through the plain versions on the card;
-4. prints the card line, one ``{"kernels": [...]}`` JSON line, and last
+4. drives the training path: ``runtime.distill.DistillTrainer`` on ``cuda``,
+   MinkUNet18A, 768-d, cosine loss, bf16, batches of 2 synthetic train
+   scenes at 2 cm (about 270k voxels), 3 steps.  The launch counters are set
+   to 0 before each step and read after it: 32 stencil and 4 down-conv
+   forward launches and 32 stencil, 4 down-conv and 4 up-conv backward
+   launches per step.  Losses must be finite and the third below the first.
+   Then one more step runs from the same model and optimizer state through
+   the kernels, through the plain versions, and through the plain versions
+   in fp32: the loss and the updated parameters of the first two must
+   agree, and the kernel path's gradients must be as close to the fp32
+   step's as the plain bf16 path's are (``compare_train_step`` states the
+   limits and why bf16 noise is measured rather than assumed);
+5. prints the card line, one ``{"kernels": [...]}`` JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
@@ -28,6 +43,7 @@ line.  It also exits non-zero when CUDA is unavailable, or when the port's
 package is not beside it.
 """
 
+import functools
 import json
 import os
 import shutil
@@ -47,6 +63,22 @@ ARCH = "MinkUNet18A"
 MODES = ("ensemble", "distill")
 STENCILS_PER_FORWARD = 32
 DOWNS_PER_FORWARD = 4
+UPS_PER_FORWARD = 4
+TRAIN_BATCH = 2
+TRAIN_STEPS = 3
+DW_TOL = 1e-4               # weight gradients: fraction of max|plain dW|
+RESOLVED = 0.1              # an element's |fp32 grad| over its tensor's max
+PARAM_TOL_RESOLVED = 0.5    # updated parameters, kernels against plain, as
+PARAM_TOL_MEAN = 0.02       # fractions of the step's learning rate
+PARAM_TOL_ALL = 1.0
+REPLACES = {
+    "stencil_conv_fwd": "openscene_tpu/sparse/pallas_conv.py:371",
+    "stencil_conv_bwd": "openscene_tpu/sparse/pallas_conv.py:447",
+    "down_conv_fwd": "openscene_tpu/sparse/pallas_edge.py:312",
+    "up_conv_bwd": "openscene_tpu/sparse/pallas_edge.py:374",
+    "down_conv_bwd": "openscene_tpu/sparse/pallas_edge.py:522"}
+FWD_SOURCE = "openscene_tpu_torch/csrc/gather_gemm_fwd.cu"
+BWD_SOURCE = "openscene_tpu_torch/csrc/gather_gemm_bwd.cu"
 
 
 def log(*a):
@@ -78,8 +110,8 @@ def cuda_time_ms(fn, iters=20, warmup=3):
 def make_dataset(root):
     from openscene_tpu_torch.data.synthetic import build_synthetic_dataset
     shutil.rmtree(root, ignore_errors=True)
-    return build_synthetic_dataset(root, n_train=0, n_val=N_SCENES, dim=DIM,
-                                   density=DENSITY)
+    return build_synthetic_dataset(root, n_train=TRAIN_BATCH, n_val=N_SCENES,
+                                   dim=DIM, density=DENSITY)
 
 
 def eval_config(d3, dfeat, mode):
@@ -89,6 +121,18 @@ def eval_config(d3, dfeat, mode):
                   split="val", feature_type=mode, arch_3d=ARCH,
                   test_repeats=1, test_workers=2, manual_seed=0,
                   allow_pseudo_text=True, text_embedding_cache="")
+
+
+def train_config(d3, dfeat):
+    from openscene_tpu_torch.config import Config
+    return Config(data_root=d3, data_root_2d_fused_feature=dfeat,
+                  feature_2d_extractor="openseg", voxel_size=VOXEL,
+                  arch_3d=ARCH, loss_type="cosine",
+                  compute_dtype="bfloat16", batch_size=TRAIN_BATCH,
+                  epochs=1, loop=TRAIN_STEPS + 3, workers=1,
+                  evaluate=False, manual_seed=0, allow_pseudo_text=True,
+                  text_embedding_cache="",
+                  save_path=os.path.join(HERE, "build", "smoke_exp"))
 
 
 def bound(K, rows_in, rows_out, pairs, cin, cout):
@@ -182,6 +226,181 @@ def kernels_phase(geo):
     return {"stencil_conv_fwd": stencil, "down_conv_fwd": down}
 
 
+def bound_bwd(rows_x, rows_g, n_idx, pairs, K, cin, cout):
+    """Least time on an H100 SXM for one conv backward, dx and dW together:
+    x, g and dx rows once (bf16), the int32 plan entries, the bf16 weights
+    and the fp32 dW; two products of 2*cin*cout operations per (offset, row)
+    pair.  Returns (ms, "bytes" or "operations")."""
+    nbytes = (2 * rows_x * cin + rows_g * cout) * 2 + n_idx * 4 \
+        + K * cin * cout * (2 + 4)
+    flops = 2 * 2.0 * pairs * cin * cout
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_case(name, kernel, plain, library, n_dx, shape, bounds):
+    """Compare one backward wrapper with its plain version and time it,
+    the plain version and the library formulation.  ``kernel``, ``plain``
+    and ``library`` are closures over the same inputs returning (dx, dW);
+    ``bounds`` = ((data ms, by), (dense ms, by))."""
+    import torch
+    dx, dw = kernel()
+    dx_p, dw_p = plain()
+    torch.cuda.synchronize()
+    err_x = (dx.float() - dx_p.float()).abs().max().item()
+    tol_x = BF16_ULP * dx_p.float().abs().max().item()
+    err_w = (dw - dw_p).abs().max().item()
+    tol_w = DW_TOL * dw_p.abs().max().item()
+    if dw.dtype != torch.float32 or dw.shape != dw_p.shape:
+        raise AssertionError(f"{name}: dW {dw.dtype} {tuple(dw.shape)}")
+    if not (err_x <= tol_x and err_w <= tol_w):
+        raise AssertionError(f"{name} {shape}: max|dx - plain| {err_x} (tol "
+                             f"{tol_x}), max|dW - plain| {err_w} (tol "
+                             f"{tol_w})")
+    if dx[n_dx:].any():
+        raise AssertionError(f"{name}: padded dx rows are not zero")
+    (b_ms, b_by), (d_ms, d_by) = bounds
+    return {"shape": shape, "max_abs_err": err_x, "tol": tol_x,
+            "dw_max_abs_err": err_w, "dw_tol": tol_w,
+            "ms": cuda_time_ms(kernel),
+            "plain_ms": cuda_time_ms(plain, iters=5),
+            "library_ms": cuda_time_ms(library, iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "dense_bound_ms": d_ms, "dense_bound_by": d_by}
+
+
+def kernels_phase_bwd(geo):
+    """Each backward wrapper at the train path's shapes, on the geometry of
+    one train batch."""
+    import torch
+    from openscene_tpu_torch.sparse.edge_conv import (
+        down_conv_bwd, down_conv_bwd_plain, up_conv_bwd, up_conv_bwd_plain)
+    from openscene_tpu_torch.sparse.stencil_conv import (
+        stencil_conv_bwd, stencil_conv_bwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16 = torch.bfloat16
+
+    def acts(level, c):
+        lv = geo.levels[level]
+        x = torch.randn((lv.cap, c), generator=gen, device="cuda")
+        x[lv.num:] = 0
+        return x.to(bf16)
+
+    def weights(K, cin, cout):
+        return torch.randn((K, cin, cout), generator=gen, device="cuda") * \
+            (2.0 / (K * cout)) ** 0.5
+
+    def gathered(t, idx):  # (K, rows, C): the im2col buffer
+        return t.index_select(0, idx.reshape(-1)).reshape(
+            idx.shape[0], idx.shape[1], t.shape[1])
+
+    stencil = []
+    for level, cin, cout in ((0, 128, 96), (0, 96, 96), (4, 256, 256)):
+        lv, plan = geo.levels[level], geo.self3[level]
+        n, cap, K = lv.num, lv.cap, 27
+        x, g, w = acts(level, cin), acts(level, cout), weights(K, cin, cout)
+        wft = w.index_select(0, plan.flip_perm.long()).transpose(1, 2) \
+            .to(bf16).reshape(K * cout, cin)
+
+        def library(x=x, g=g, plan=plan, wft=wft, cap=cap):
+            G = gathered(g, plan.fwd)
+            dx = torch.matmul(G.transpose(0, 1).reshape(cap, -1), wft)
+            dw = torch.matmul(x.t().unsqueeze(0), G)
+            return dx, dw.index_select(0, plan.flip_perm.long())
+
+        pairs = int((plan.fwd[:, :n] < n).sum().item())
+        stencil.append(bwd_case(
+            "stencil_conv_bwd",
+            lambda x=x, w=w, g=g, p=plan: stencil_conv_bwd(
+                x, w, g, p.fwd, p.flip_perm),
+            lambda x=x, w=w, g=g, p=plan: stencil_conv_bwd_plain(
+                x, w, g, p.fwd, p.flip_perm),
+            library, n,
+            f"K=27 {cin}->{cout} rows={cap} (valid {n}, {pairs} neighbour "
+            "pairs)",
+            (bound_bwd(n, n, K * n, pairs, K, cin, cout),
+             bound_bwd(cap, cap, K * cap, K * cap, K, cin, cout))))
+
+    up, down = [], []
+    for edge, up_w, down_w in ((0, (96, 96), (32, 32)),
+                               (1, (128, 96), (32, 32))):
+        plan = geo.down[edge]
+        child, parent = geo.levels[edge], geo.levels[edge + 1]
+        nc, np_, ccap, pcap = child.num, parent.num, child.cap, parent.cap
+        what = (f"child rows {ccap} (valid {nc}), parent rows {pcap} "
+                f"(valid {np_})")
+
+        # up conv: x on the parents, g on the children
+        cin, cout = up_w
+        x, g, w = acts(edge + 1, cin), acts(edge, cout), weights(8, cin, cout)
+        wt = w.transpose(1, 2).to(bf16).reshape(8 * cout, cin)
+
+        def library(x=x, g=g, plan=plan, wt=wt, pcap=pcap):
+            G = gathered(g, plan.fwd)
+            dx = torch.matmul(G.transpose(0, 1).reshape(pcap, -1), wt)
+            return dx, torch.matmul(x.t().unsqueeze(0), G)
+
+        up.append(bwd_case(
+            "up_conv_bwd",
+            lambda x=x, w=w, g=g, p=plan: up_conv_bwd(x, w, g, p),
+            lambda x=x, w=w, g=g, p=plan: up_conv_bwd_plain(x, w, g, p),
+            library, np_, f"K=8 {cin}->{cout} {what}",
+            (bound_bwd(np_, nc, 8 * np_, nc, 8, cin, cout),
+             bound_bwd(pcap, ccap, 8 * pcap, 8 * pcap, 8, cin, cout))))
+
+        # down conv: x on the children, g on the parents
+        cin, cout = down_w
+        x, g, w = acts(edge, cin), acts(edge + 1, cout), weights(8, cin, cout)
+        wt = w.transpose(1, 2).to(bf16)
+
+        def library(x=x, g=g, plan=plan, wt=wt, cin=cin, pcap=pcap):
+            y = torch.matmul(g.unsqueeze(0), wt).reshape(-1, cin)
+            dx = y.index_select(
+                0, plan.child_offset.long() * pcap + plan.child_parent)
+            return dx, torch.matmul(gathered(x, plan.fwd).transpose(1, 2), g)
+
+        down.append(bwd_case(
+            "down_conv_bwd",
+            lambda x=x, w=w, g=g, p=plan: down_conv_bwd(x, w, g, p),
+            lambda x=x, w=w, g=g, p=plan: down_conv_bwd_plain(x, w, g, p),
+            library, nc, f"K=8 {cin}->{cout} {what}",
+            (bound_bwd(nc, np_, 8 * np_ + 2 * nc, nc, 8, cin, cout),
+             bound_bwd(ccap, pcap, 8 * pcap + 2 * ccap, 8 * pcap, 8, cin,
+                       cout))))
+    return {"stencil_conv_bwd": stencil, "up_conv_bwd": up,
+            "down_conv_bwd": down}
+
+
+def profile_device(fn, what):
+    """Device time by kernel of one call of ``fn`` under torch.profiler."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []  # device-side events only: kernels and copies
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("Activity Buffer")):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        print(f"profiler[{what}]: no device time recorded (not measured)",
+              flush=True)
+    for ms, n, key in rows[:10]:
+        print(f"profiler[{what}]: {ms:9.3f} ms {100 * ms / busy:5.1f}% "
+              f"x{n:<4d} {key[:90]}", flush=True)
+    return busy
+
+
 def breakdown(step, model, text, sample, dim):
     """Host and device time of one scene: batch assembly (voxels are already
     loaded), the step to its synchronised end, and the device time by
@@ -196,53 +415,226 @@ def breakdown(step, model, text, sample, dim):
     step(model, text, batch)
     torch.cuda.synchronize()
     t_step = time.time() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step(model, text, batch)
-        torch.cuda.synchronize()
-    rows = []  # device-side events only: kernels and copies
-    for e in prof.key_averages():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.key.startswith("Activity Buffer")):
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0:
-            rows.append((t / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
     print(f"scene 0 breakdown: host assembly (geometry plans) "
           f"{t_host * 1e3:.1f} ms, device step (plans to device, forward, "
           f"text product) {t_step * 1e3:.1f} ms", flush=True)
-    busy = sum(r[0] for r in rows)
-    if not rows:
-        print("profiler: no device time recorded (not measured)", flush=True)
-    for ms, n, key in rows[:10]:
-        print(f"profiler: {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<4d} "
-              f"{key[:90]}", flush=True)
-    if rows:
-        print(f"profiler: device busy {busy:.3f} ms in the profiled step "
-              f"(unprofiled step {t_step * 1e3:.1f} ms)", flush=True)
+    busy = profile_device(lambda: step(model, text, batch), "eval")
+    if busy:
+        print(f"profiler[eval]: device busy {busy:.3f} ms in the profiled "
+              f"step (unprofiled step {t_step * 1e3:.1f} ms)", flush=True)
 
 
-def plain_path(model_module):
-    """Context manager: the model calls the plain versions (for the
-    on-card comparison of a whole forward only)."""
+def plain_path():
+    """Context manager: the autograd Functions call the plain versions,
+    forward and backward (for the on-card comparison of a whole forward or
+    train step only)."""
     import contextlib
-    from openscene_tpu_torch.sparse.edge_conv import down_conv_plain
-    from openscene_tpu_torch.sparse.stencil_conv import stencil_conv_plain
+    from openscene_tpu_torch.sparse import edge_conv, stencil_conv
+
+    wrappers()  # hold the kernel wrappers themselves before the names move
+    swaps = [(stencil_conv, "stencil_conv_fwd",
+              stencil_conv.stencil_conv_plain),
+             (stencil_conv, "stencil_conv_bwd",
+              stencil_conv.stencil_conv_bwd_plain),
+             (edge_conv, "down_conv_fwd", edge_conv.down_conv_plain),
+             (edge_conv, "down_conv_bwd", edge_conv.down_conv_bwd_plain),
+             (edge_conv, "up_conv_bwd", edge_conv.up_conv_bwd_plain)]
 
     @contextlib.contextmanager
     def ctx():
-        saved = model_module.stencil_conv_fwd, model_module.down_conv_fwd
-        model_module.stencil_conv_fwd = stencil_conv_plain
-        model_module.down_conv_fwd = down_conv_plain
+        saved = [getattr(mod, name) for mod, name, _ in swaps]
+        for mod, name, plain in swaps:
+            setattr(mod, name, plain)
         try:
             yield
         finally:
-            model_module.stencil_conv_fwd, model_module.down_conv_fwd = saved
+            for (mod, name, _), fn in zip(swaps, saved):
+                setattr(mod, name, fn)
     return ctx()
+
+
+@functools.lru_cache(maxsize=None)
+def wrappers():
+    """{name: wrapper} of the five kernel wrappers, each with ``.launches``.
+    Looked up once, so that the counts set and read are those of the kernel
+    wrappers also while :func:`plain_path` has the modules' names point at
+    the plain versions."""
+    from openscene_tpu_torch.sparse.edge_conv import (down_conv_bwd,
+                                                      down_conv_fwd,
+                                                      up_conv_bwd)
+    from openscene_tpu_torch.sparse.stencil_conv import (stencil_conv_bwd,
+                                                         stencil_conv_fwd)
+    return {"stencil_conv_fwd": stencil_conv_fwd,
+            "down_conv_fwd": down_conv_fwd,
+            "stencil_conv_bwd": stencil_conv_bwd,
+            "down_conv_bwd": down_conv_bwd, "up_conv_bwd": up_conv_bwd}
+
+
+def zero_counts():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+TRAIN_LAUNCHES = {"stencil_conv_fwd": STENCILS_PER_FORWARD,
+                  "down_conv_fwd": DOWNS_PER_FORWARD,
+                  "stencil_conv_bwd": STENCILS_PER_FORWARD,
+                  "down_conv_bwd": DOWNS_PER_FORWARD,
+                  "up_conv_bwd": UPS_PER_FORWARD}
+
+
+def train_phase(trainer, batches, card):
+    """TRAIN_STEPS steps of the trainer's step on ``cuda``; returns the
+    launches counted.  ``batches`` yields DistillBatches (host assembly is
+    timed around ``next``)."""
+    import math
+    import torch
+    total = dict.fromkeys(TRAIN_LAUNCHES, 0)
+    losses, voxels, t_host, t_dev = [], 0, 0.0, 0.0
+    t_all = time.time()
+    for i in range(TRAIN_STEPS):
+        t0 = time.time()
+        batch = next(batches)
+        host = time.time() - t0
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.time()
+        loss = float(trainer.step_fn(batch))
+        torch.cuda.synchronize()
+        dev = time.time() - t0
+        got = read_counts()
+        if got != TRAIN_LAUNCHES:
+            raise AssertionError(f"train step {i}: launches {got}, want "
+                                 f"{TRAIN_LAUNCHES}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"train step {i}: loss {loss}")
+        for k in total:
+            total[k] += got[k]
+        losses.append(loss)
+        voxels += batch.num_voxels
+        t_host += host
+        t_dev += dev
+        print(f"train step {i}: loss {loss:.6f}, {batch.num_voxels} voxels "
+              f"(level-0 cap {batch.geo.levels[0].cap}), host load + "
+              f"assembly {host * 1e3:.1f} ms, device step (plans to device, "
+              f"forward, loss, backward, Adam) {dev * 1e3:.1f} ms", flush=True)
+    dt = time.time() - t_all
+    if not losses[2] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    print(f"train: {ARCH} {DIM}-d cosine bf16, batch of {TRAIN_BATCH} "
+          f"scenes, {TRAIN_STEPS} steps, {voxels} voxels in {dt:.3f}s -> "
+          f"{TRAIN_STEPS / dt:.4f} steps/s, {voxels / dt:.1f} voxels/s "
+          f"(host {t_host:.3f}s, device steps {t_dev:.3f}s; step 0 includes "
+          f"the allocator's warm-up) [{card}]", flush=True)
+    return total
+
+
+def compare_train_step(trainer, batch):
+    """One step from the same model and optimizer state three times on the
+    card: through the kernels (bf16), through the plain versions (bf16), and
+    through the plain versions in fp32 as the yardstick of bf16 noise.
+
+    The bf16 paths take the same fp32 sums of the same exact bf16 products
+    in another order, so each conv output and input gradient may differ by
+    one bf16 ulp.  Behind training-mode BatchNorm a gradient is what is left
+    after the cotangent's mean and its component along the activations
+    cancel, so that noise is a large share of some tensors (10% and more of
+    a BatchNorm beta's norm); a fixed limit on kernel against plain would
+    only measure bf16.  Held instead: the loss within 1e-3 relative; the
+    kernel path's gradients no farther from the fp32 step's than the plain
+    bf16 path's are (all parameters together: at most 1.25x + 0.01 in
+    relative L2; each parameter: at most 3x + 0.05); and the parameters after
+    the update against the plain path's.  Adam moves a weight by about lr
+    per step whatever the gradient's scale, so any two steps lie within
+    2*lr of each other and that says nothing; held are the distances a
+    right step keeps: PARAM_TOL_RESOLVED * lr on the elements whose fp32
+    gradient is resolved (at least RESOLVED of its tensor's largest), where
+    bf16 noise cannot turn Adam's ratio of moments, PARAM_TOL_MEAN * lr on
+    the mean over all elements, PARAM_TOL_ALL * lr on every element; and the
+    parameters moved at all.  Returns the summary it prints."""
+    import copy
+    import statistics
+    import torch
+    model, opt, step = trainer.model, trainer.optimizer, trainer.step_fn
+    state0 = copy.deepcopy(model.state_dict())
+    opt0 = copy.deepcopy(opt.state_dict())
+    it0 = step.it
+
+    def run(cdtype):
+        model.load_state_dict(state0)
+        opt.load_state_dict(copy.deepcopy(opt0))
+        step.it, saved = it0, step.cdtype
+        step.cdtype = cdtype
+        try:
+            loss = float(step(batch))
+        finally:
+            step.cdtype = saved
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        if not all(torch.isfinite(g).all() for g in grads.values()):
+            raise AssertionError("a gradient is not finite")
+        return loss, grads, params
+
+    zero_counts()
+    loss_k, grads_k, params_k = run(torch.bfloat16)
+    if read_counts() != TRAIN_LAUNCHES:
+        raise AssertionError(f"compared step: launches {read_counts()}")
+    with plain_path():
+        zero_counts()
+        loss_p, grads_p, params_p = run(torch.bfloat16)
+        loss_32, grads_32, _ = run(torch.float32)
+        if any(read_counts().values()):
+            raise AssertionError("the plain path launched a kernel")
+
+    def dist(a, b):  # per parameter and all together, relative L2 to b
+        each = {n: ((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30)
+                    ).item() for n in b}
+        num = sum((a[n] - b[n]).norm().item() ** 2 for n in b) ** 0.5
+        return each, num / sum(b[n].norm().item() ** 2 for n in b) ** 0.5
+
+    k32, k32_all = dist(grads_k, grads_32)
+    p32, p32_all = dist(grads_p, grads_32)
+    kp, kp_all = dist(grads_k, grads_p)
+    worst = max(k32, key=lambda n: k32[n] / (3 * p32[n] + 0.05))
+    lr = trainer.schedule(it0)
+    dparam, dresolved, dsum, count = 0.0, 0.0, 0.0, 0
+    for n, p in params_p.items():
+        diff = (params_k[n] - p).abs()
+        g32 = grads_32[n].abs()
+        resolved = diff[g32 >= RESOLVED * g32.max()]
+        dparam = max(dparam, diff.max().item())
+        dresolved = max(dresolved, resolved.max().item())
+        dsum, count = dsum + diff.sum().item(), count + diff.numel()
+    moved = max((params_k[n] - state0[n]).abs().max().item()
+                for n in params_p)
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_fp32": loss_32,
+           "grad_rel_l2_kernels_vs_fp32": k32_all,
+           "grad_rel_l2_plain_vs_fp32": p32_all,
+           "grad_rel_l2_kernels_vs_plain": kp_all,
+           "per_param_kernels_vs_plain_median": statistics.median(
+               kp.values()),
+           "per_param_kernels_vs_plain_max": max(kp.values()),
+           "worst_param": worst, "worst_kernels_vs_fp32": k32[worst],
+           "worst_plain_vs_fp32": p32[worst],
+           "param_max_abs_diff": dparam,
+           "param_resolved_max_abs_diff": dresolved,
+           "param_mean_abs_diff": dsum / count,
+           "param_max_abs_move": moved, "lr": lr}
+    print(f"train-step parity (kernels vs plain vs fp32 plain on the card, "
+          f"same state and batch): {json.dumps(out)}", flush=True)
+    if not (abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+            and k32_all <= 1.25 * p32_all + 0.01
+            and k32[worst] <= 3 * p32[worst] + 0.05
+            and 0 < moved and dparam <= PARAM_TOL_ALL * lr
+            and dresolved <= PARAM_TOL_RESOLVED * lr
+            and dsum / count <= PARAM_TOL_MEAN * lr):
+        raise AssertionError("kernel-path and plain-path train steps "
+                             "disagree")
+    return out
 
 
 def main():
@@ -259,14 +651,12 @@ def main():
     import numpy as np
     from openscene_tpu_torch.data.batch import assemble_eval_batch
     from openscene_tpu_torch.device import resolve_device
-    from openscene_tpu_torch.models import sparse_unet
+    from openscene_tpu_torch.runtime.distill import DistillTrainer
     from openscene_tpu_torch.runtime.evaluate import (ZeroShotEvaluator,
                                                       load_model_for_eval,
                                                       make_eval_step)
     from openscene_tpu_torch.sparse import _build
-    from openscene_tpu_torch.sparse.edge_conv import down_conv_fwd
     from openscene_tpu_torch.sparse.geometry import geometry_to_device
-    from openscene_tpu_torch.sparse.stencil_conv import stencil_conv_fwd
 
     # ---- 1. device and build ----
     card = card_line()
@@ -282,11 +672,11 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
 
-    # ---- data: 2 synthetic scenes at bench density, 768-d features ----
+    # ---- data: synthetic scenes at bench density, 768-d features ----
     t0 = time.time()
     d3, dfeat = make_dataset(os.path.join(HERE, "build", "smoke_data"))
-    print(f"data: {N_SCENES} scenes written in {time.time() - t0:.1f}s",
-          flush=True)
+    print(f"data: {TRAIN_BATCH} train and {N_SCENES} val scenes written in "
+          f"{time.time() - t0:.1f}s", flush=True)
 
     # ---- 2. kernels against their plain versions ----
     cfg = eval_config(d3, dfeat, "ensemble")
@@ -296,29 +686,48 @@ def main():
     samples = [loader.get(i) for i in range(N_SCENES)]
     batch0 = assemble_eval_batch([samples[0]], DIM)
     geo0 = geometry_to_device(batch0.geo, device)
-    caps = [l.cap for l in geo0.levels]
-    nums = [l.num for l in geo0.levels]
-    print(f"scene 0: level caps {caps}, valid rows {nums}", flush=True)
+    print(f"scene 0: level caps {[l.cap for l in geo0.levels]}, valid rows "
+          f"{[l.num for l in geo0.levels]}", flush=True)
     cases = kernels_phase(geo0)
 
-    # ---- 3. the main path ----
+    trainer = DistillTrainer(train_config(d3, dfeat), allow_pseudo_text=True,
+                             device=device)
+    batches = trainer._epoch_batches()
+    tbatch = next(batches)
+    tgeo = geometry_to_device(tbatch.geo, device)
+    print(f"train batch: {tbatch.num_voxels} voxels, level caps "
+          f"{[l.cap for l in tgeo.levels]}, valid rows "
+          f"{[l.num for l in tgeo.levels]}", flush=True)
+    cases.update(kernels_phase_bwd(tgeo))
+    del tgeo
+    for name, shapes in cases.items():
+        for c in shapes:
+            print(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
+                  f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, "
+                  f"bound {c['bound_ms']:.5f} ({c['bound_by']}), dense "
+                  f"{c['dense_bound_ms']:.5f} ({c['dense_bound_by']}), "
+                  f"max err {c['max_abs_err']:.3e}"
+                  + (f", dW err {c['dw_max_abs_err']:.3e} of tol "
+                     f"{c['dw_tol']:.3e}" if "dw_tol" in c else "")
+                  + f" [{card}]", flush=True)
+
+    # ---- 3. the serving path ----
     model = ev.model
-    launches = {"stencil_conv_fwd": 0, "down_conv_fwd": 0}
+    launches = dict.fromkeys(TRAIN_LAUNCHES, 0)
     n_voxels = sum(len(s.coords) for s in samples)
     for mode in MODES:
         mev = ZeroShotEvaluator(eval_config(d3, dfeat, mode), model,
                                 allow_pseudo_text=True, device=device)
         torch.cuda.synchronize()
-        stencil_conv_fwd.launches = 0
-        down_conv_fwd.launches = 0
+        zero_counts()
         t0 = time.time()
         res = mev.run()
         torch.cuda.synchronize()
         dt = time.time() - t0
-        got = {"stencil_conv_fwd": stencil_conv_fwd.launches,
-               "down_conv_fwd": down_conv_fwd.launches}
-        want = {"stencil_conv_fwd": STENCILS_PER_FORWARD * N_SCENES,
-                "down_conv_fwd": DOWNS_PER_FORWARD * N_SCENES}
+        got = read_counts()
+        want = dict.fromkeys(TRAIN_LAUNCHES, 0)
+        want.update(stencil_conv_fwd=STENCILS_PER_FORWARD * N_SCENES,
+                    down_conv_fwd=DOWNS_PER_FORWARD * N_SCENES)
         if got != want:
             raise AssertionError(f"{mode}: launches {got}, want {want}")
         if not np.isfinite(res["miou"]):
@@ -336,7 +745,7 @@ def main():
     # one scene through the kernels and through the plain versions
     step = make_eval_step("distill", constant_input=True)
     logits_k = step(model, ev.text, batch0)[0][:batch0.num_points]
-    with plain_path(sparse_unet):
+    with plain_path():
         logits_p = step(model, ev.text, batch0)[0][:batch0.num_points]
     torch.cuda.synchronize()
     if not (torch.isfinite(logits_k).all() and logits_k.shape[1] == 20):
@@ -351,24 +760,48 @@ def main():
           f"agreement {agree.item():.5f} off near-ties", flush=True)
     if not (lerr <= 4 * BF16_ULP * scale and agree.item() >= 0.995):
         raise AssertionError("kernel path and plain path disagree")
+    del ev, model, logits_k, logits_p
 
-    # ---- 4. report ----
-    replaces = {"stencil_conv_fwd": "openscene_tpu/sparse/pallas_conv.py:371",
-                "down_conv_fwd": "openscene_tpu/sparse/pallas_edge.py:312"}
+    # ---- 4. the training path ----
+    del tbatch
+    train_launches = train_phase(trainer, batches, card)
+    for k in launches:
+        launches[k] += train_launches[k]
+    pbatch = next(batches)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.step_fn(pbatch)
+    torch.cuda.synchronize()
+    t_step = time.time() - t0
+    busy = profile_device(lambda: trainer.step_fn(pbatch), "train")
+    if busy:
+        print(f"profiler[train]: device busy {busy:.3f} ms in the profiled "
+              f"train step (unprofiled step {t_step * 1e3:.1f} ms, "
+              f"{pbatch.num_voxels} voxels) [{card}]", flush=True)
+    compare_train_step(trainer, pbatch)
+
+    # ---- 5. report ----
     kernels = []
     for name, shapes in cases.items():
         main_shape = shapes[0]
-        kernels.append({
+        fwd = name.endswith("_fwd")
+        entry = {
             "name": name, "route": "cuda",
-            "source": "openscene_tpu_torch/csrc/gather_gemm_fwd.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "launches_per_forward": launches[name] / forwards,
+            "source": FWD_SOURCE if fwd else BWD_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
-            "shapes": shapes})
+            "shapes": shapes}
+        if fwd:
+            entry["launches_per_forward"] = (
+                launches[name] - train_launches[name]) / forwards
+        else:
+            entry["also_launches"] = FWD_SOURCE + " (dx)"
+        kernels.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ Layouts are unchanged: conv weights stay (K, C_in, C_out) fp32 in the same
 offset order.
 
 The trees arrive as NumPy arrays (``np.asarray`` of each leaf); nothing
-here imports JAX.
+here imports JAX.  :func:`flatten_tree` gives the same dotted names for any
+tree of that shape (gradients, updated parameters), so a test can hold the
+port's ``.grad``s against a JAX gradient tree by name.
 """
 
 from __future__ import annotations
@@ -33,6 +35,14 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
         out[prefix[:-1]] = np.asarray(tree)
 
 
+def flatten_tree(tree) -> Dict[str, np.ndarray]:
+    """Nested dicts/lists of arrays -> {dotted name: ndarray}, e.g.
+    ``tree["block1"][0]["bn1"]["gamma"]`` -> ``"block1.0.bn1.gamma"``."""
+    out: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", out)
+    return out
+
+
 def params_from_jax(params, state, arch: str) -> Dict[str, torch.Tensor]:
     """JAX (params, state) trees -> the port's ``MinkUNet`` state_dict."""
     a = ARCHS[arch]
@@ -40,8 +50,6 @@ def params_from_jax(params, state, arch: str) -> Dict[str, torch.Tensor]:
         if len(params[f"block{b}"]) != a.layers[b - 1]:
             raise ValueError(f"block{b} has {len(params[f'block{b}'])} "
                              f"blocks, {arch} has {a.layers[b - 1]}")
-    flat: Dict[str, np.ndarray] = {}
-    _flatten(params, "", flat)
-    _flatten(state, "", flat)
+    flat = {**flatten_tree(params), **flatten_tree(state)}
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in flat.items()}

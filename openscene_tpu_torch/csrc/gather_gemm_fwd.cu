@@ -17,7 +17,10 @@
 // packing and spill lists exist for the TPU's memory system and are not
 // carried over: this kernel reads the plain index plan.  A missing neighbour
 // already points into the all-zero padding rows [num, cap) of x, so the
-// kernel needs no mask, and padded output rows come out exactly zero.
+// kernel needs no mask, and padded output rows come out exactly zero.  A
+// negative index is read as a zero row.  The same kernel computes the input
+// gradient dx of every conv backward, on the cotangent with transposed
+// weights (csrc/gather_gemm_bwd.cu lists the three forms).
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16):
 //   bytes = (rows_in*Cin + rows_out*Cout)*2 + K*rows_out*4 + K*Cin*Cout*2

@@ -1,14 +1,17 @@
-"""Batch assembly for evaluation: scenes -> static-shape buffers + geometry.
+"""Batch assembly: scenes -> static-shape buffers + geometry.
 
-Counterpart of ``openscene_tpu/data/batch.py``, reduced to the eval path
-(reference ``collation_fn_eval_all``, dataset/feature_loader.py:191-233):
+Counterpart of ``openscene_tpu/data/batch.py`` with host-built geometry
+(reference ``collation_fn[_eval_all]``, dataset/feature_loader.py:191-233):
 
 * scenes are concatenated with a batch column, then spatially lex-sorted
   (batch, x, y, z) so every conv gather reads nearby rows;
 * everything is padded to geometric capacity buckets (static shapes);
 * fused features are placed in a (cap0, D) buffer at their voxel rows;
-* per-point reconstruction indices are remapped through the sort
+* for eval, per-point reconstruction indices are remapped through the sort
   permutation and padded to their own bucket.
+
+The train-time per-batch random global coordinate shift
+(``coords[:,1:4] += rand(3)*100``, run/distill.py:315) is applied here.
 
 The arrays are NumPy; :func:`openscene_tpu_torch.sparse.geometry_to_device`
 moves the geometry to a device.
@@ -26,6 +29,16 @@ from ..sparse.types import UNetGeometry
 from .loaders import SceneSample
 
 
+class DistillBatch(NamedTuple):
+    geo: UNetGeometry
+    feats: np.ndarray      # (cap0, 3) float32 input features
+    feat_3d: np.ndarray    # (cap0, D) float16 fused target features (storage
+    # dtype, fusion_util.py:87; cast to compute dtype on device)
+    mask: np.ndarray       # (cap0,) float32 1.0 where a fused target exists
+    labels: np.ndarray     # (cap0,) int32 voxel labels (for debug/val viz)
+    num_voxels: int
+
+
 class EvalBatch(NamedTuple):
     geo: UNetGeometry
     feats: np.ndarray       # (cap0, 3)
@@ -35,6 +48,18 @@ class EvalBatch(NamedTuple):
     inds_reconstruct: np.ndarray  # (ocap,) voxel row per original point
     num_points: int
     num_voxels: int
+
+
+class SegBatch(NamedTuple):
+    """Supervised segmentation batch; the distill trainer validates on its
+    ``eval_all`` form (per-point labels + reconstruction indices)."""
+    geo: UNetGeometry
+    feats: np.ndarray
+    labels: np.ndarray      # (cap0,) int32, 255 at padding
+    num_voxels: int
+    inds_reconstruct: Optional[np.ndarray] = None
+    point_labels: Optional[np.ndarray] = None
+    num_points: int = 0
 
 
 def _concat_sort(samples: Sequence[SceneSample], shift: Optional[np.ndarray]):
@@ -56,6 +81,36 @@ def _concat_sort(samples: Sequence[SceneSample], shift: Optional[np.ndarray]):
     inv = np.empty_like(perm)
     inv[perm] = np.arange(len(perm))
     return coords[perm], perm, inv, np.asarray(offsets)
+
+
+def _random_shift(rng: Optional[np.random.Generator], shift: bool):
+    rng = rng if rng is not None else np.random.default_rng()
+    return np.floor(rng.random(3) * 100).astype(np.int64) if shift else None
+
+
+def assemble_distill_batch(samples: Sequence[SceneSample], dim: int,
+                           caps: Optional[GeometryCaps] = None,
+                           rng: Optional[np.random.Generator] = None,
+                           shift: bool = True) -> DistillBatch:
+    """Train batch: one random global shift for the whole batch, fp16
+    targets placed at the voxel rows that have a fused feature."""
+    coords, perm, inv, offs = _concat_sort(samples, _random_shift(rng, shift))
+    n = len(coords)
+    geo = build_unet_geometry(coords, caps=caps or GeometryCaps.for_count(n))
+    cap0 = geo.levels[0].cap
+
+    feats = np.zeros((cap0, 3), dtype=np.float32)
+    feat_3d = np.zeros((cap0, dim), dtype=np.float16)  # fp16 end to end
+    mask = np.zeros(cap0, dtype=np.float32)
+    labels = np.full(cap0, 255, dtype=np.int32)
+    feats[:n] = np.concatenate([s.feats for s in samples])[perm]
+    labels[:n] = np.concatenate([s.labels for s in samples])[perm]
+    for b, s in enumerate(samples):
+        rows = inv[offs[b] + np.flatnonzero(s.feat_mask)]
+        feat_3d[rows] = s.feat_3d
+        mask[rows] = 1.0
+    return DistillBatch(geo=geo, feats=feats, feat_3d=feat_3d, mask=mask,
+                        labels=labels, num_voxels=n)
 
 
 def assemble_eval_batch(samples: Sequence[SceneSample], dim: int,
@@ -96,3 +151,31 @@ def assemble_eval_batch(samples: Sequence[SceneSample], dim: int,
     return EvalBatch(geo=geo, feats=feats, feat_3d=feat_3d, mask=mask,
                      labels=labels, inds_reconstruct=inds, num_points=n_pts,
                      num_voxels=n)
+
+
+def assemble_seg_batch(samples: Sequence[SceneSample],
+                       caps: Optional[GeometryCaps] = None,
+                       rng: Optional[np.random.Generator] = None,
+                       shift: bool = False, eval_all: bool = False,
+                       point_cap: Optional[int] = None) -> SegBatch:
+    coords, perm, inv, offs = _concat_sort(samples, _random_shift(rng, shift))
+    n = len(coords)
+    geo = build_unet_geometry(coords, caps=caps or GeometryCaps.for_count(n))
+    cap0 = geo.levels[0].cap
+    feats = np.zeros((cap0, 3), dtype=np.float32)
+    feats[:n] = np.concatenate([s.feats for s in samples])[perm]
+    labels = np.full(cap0, 255, dtype=np.int32)
+    if not eval_all:
+        labels[:n] = np.concatenate([s.labels for s in samples])[perm]
+        return SegBatch(geo=geo, feats=feats, labels=labels, num_voxels=n)
+    pts = np.concatenate([s.labels for s in samples])
+    n_pts = len(pts)
+    ocap = point_cap or _bucket(n_pts)
+    plabels = np.full(ocap, 255, dtype=np.int32)
+    plabels[:n_pts] = pts
+    inds = np.full(ocap, cap0 - 1, dtype=np.int32)
+    inds[:n_pts] = np.concatenate(
+        [inv[offs[b] + s.inds_reconstruct] for b, s in enumerate(samples)])
+    return SegBatch(geo=geo, feats=feats, labels=labels, num_voxels=n,
+                    inds_reconstruct=inds, point_labels=plabels,
+                    num_points=n_pts)

@@ -20,8 +20,10 @@ Init: He-normal with std = sqrt(2 / (K * C_out)) on conv kernels (fan-out
 over the kernel volume, reference ``models/resnet_base.py:73-80``), drawn
 from a ``torch.Generator``; BN gamma=1, beta=0.
 
-Only the eval-mode forward exists in this slice; training arrives with the
-train step.
+In training mode (``model.train()``) BatchNorm takes batch statistics over
+the valid rows and updates its running buffers, and the sparse convs carry
+their gradients through the autograd Functions of ``sparse/stencil_conv.py``
+and ``sparse/edge_conv.py``, whose backward is a CUDA kernel on the card.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..sparse.edge_conv import down_conv_fwd, up_conv_fwd
+from ..sparse.edge_conv import DownConv, UpConv
 from ..sparse.ops import masked_batch_norm, matmul_f32, relu, valid_mask
-from ..sparse.stencil_conv import stencil_conv_fwd
+from ..sparse.stencil_conv import StencilConv
 from ..sparse.types import ConvPlan, DownPlan, UNetGeometry
 
 
@@ -42,23 +44,25 @@ def _stencil_conv(x, w, plan: ConvPlan):
     """Stencil conv (k=3 blocks; k=5 stem on non-constant input): the CUDA
     kernel's wrapper at every level.  Input channels that are not a multiple
     of 8 (the 3-channel colour stem) are zero-padded, which adds exact
-    zeros, so the kernel's 16-byte row vectors apply."""
+    zeros, so the kernel's 16-byte row vectors apply; autograd of the pad
+    drops the padded rows of dW again."""
     cin = w.shape[1]
     pad = -cin % 8
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
         w = torch.nn.functional.pad(w, (0, 0, 0, pad))
-    return stencil_conv_fwd(x.contiguous(), w, plan.fwd)
+    return StencilConv.apply(x.contiguous(), w, plan.fwd, plan.flip_perm)
 
 
 def _edge_down_conv(x, w, plan: DownPlan):
-    """k=2 s=2 down conv: the CUDA kernel's wrapper on every edge."""
-    return down_conv_fwd(x.contiguous(), w, plan.fwd)
+    """k=2 s=2 down conv: the CUDA kernels' wrappers on every edge."""
+    return DownConv.apply(x.contiguous(), w, *plan)
 
 
 def _edge_up_conv(x, w, plan: DownPlan):
-    """k=2 s=2 up conv: dense parent GEMMs + one placement gather."""
-    return up_conv_fwd(x, w, plan)
+    """k=2 s=2 up conv: dense parent GEMMs + one placement gather forward,
+    the CUDA kernels' wrapper backward."""
+    return UpConv.apply(x.contiguous(), w, *plan)
 
 
 def _conv1x1(x, w):
@@ -102,8 +106,10 @@ def _conv_weight(k_volume: int, cin: int, cout: int,
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the valid rows of a padded buffer (eval mode: running
-    statistics), output re-masked; see sparse/ops.py:masked_batch_norm."""
+    """BatchNorm over the valid rows of a padded buffer, output re-masked;
+    see sparse/ops.py:masked_batch_norm.  Eval mode normalises with the
+    running statistics; training mode with the batch's and moves the
+    ``mean``/``var`` buffers towards them (momentum 0.1, unbiased variance)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -113,8 +119,13 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x, mask, num):
-        out, _, _ = masked_batch_norm(x, mask, num, self.gamma, self.beta,
-                                      self.mean, self.var, train=False)
+        out, mean, var = masked_batch_norm(
+            x, mask, num, self.gamma, self.beta, self.mean, self.var,
+            train=self.training)
+        if self.training:
+            with torch.no_grad():
+                self.mean.copy_(mean)
+                self.var.copy_(var)
         return out
 
 
@@ -214,9 +225,6 @@ class MinkUNet(nn.Module):
         Returns (cap0, out_ch) fp32, or the (cap0, C) pre-head activations
         with ``return_prehead``.
         """
-        if self.training:
-            raise NotImplementedError(
-                "only the eval-mode forward is ported; call .eval()")
         dev = x.device
         masks = [valid_mask(l.num, l.cap, device=dev) for l in geo.levels]
         nums = [int(l.num) for l in geo.levels]

@@ -1,0 +1,389 @@
+"""3D distillation training: regress fused CLIP features from geometry.
+
+Counterpart of ``openscene_tpu/runtime/distill.py`` (reference
+``run/distill.py``) on one CUDA device with host-built geometry: a
+MinkUNet18A consumes voxelized point clouds (constant-1 input features by
+default) and regresses the fused 2D CLIP features with a cosine (or L1) loss
+on the voxels that have targets.
+
+Parity details carried over:
+* Adam with a poly LR schedule times 10 — the reference's ``index_split=0``
+  puts every param group on the 10x branch (run/distill.py:141-142,344-347),
+  so the effective LR is ``10 * base_lr * (1 - it/max_it)^power``, read at
+  the iteration count *before* each update (step 0 trains at ``lr(0)``);
+* per-batch random global coordinate shift (run/distill.py:315), applied in
+  batch assembly;
+* val-every-epoch mIoU against CLIP text embeddings gates the best
+  checkpoint (run/distill.py:219-242).
+
+Voxelization, batch assembly and geometry plans run on the host (ahead of
+the device in ``workers`` threads); forward, loss, backward and the Adam
+update run on the device, the sparse convs and their gradients through the
+hand-written CUDA kernels.  Multi-device training, geometry built on the
+device and the epoch-end qualitative export are not ported yet (ROADMAP).
+
+Run: ``python -m openscene_tpu_torch.runtime.distill --config <yaml>
+[--device cuda|cpu] [key value]*``
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from os.path import isfile, join
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import metrics
+from ..config import Config, dataset_name_from_root, load_config
+from ..data.batch import (DistillBatch, SegBatch, assemble_distill_batch,
+                          assemble_seg_batch)
+from ..data.loaders import FusedFeatureLoader, Point3DLoader
+from ..device import resolve_device
+from ..labels import labelset_and_palette
+from ..models.disnet import output_dim
+from ..models.sparse_unet import MinkUNet
+from ..sparse.geometry import geometry_to_device
+from ..sparse.ops import matmul_f32
+from ..text import extract_text_features
+from ..utils.train_utils import (AverageMeter, ScalarWriter, get_logger,
+                                 load_checkpoint, save_checkpoint)
+
+log = get_logger()
+
+
+def _guarded_norms(sq_o: torch.Tensor, sq_t: torch.Tensor):
+    """sqrt with a guard: padded rows are exactly zero, d(sqrt)(0) is inf,
+    and 0 * inf would leak NaN through the mask."""
+    one = torch.ones((), dtype=sq_o.dtype, device=sq_o.device)
+    return (torch.sqrt(torch.where(sq_o > 0, sq_o, one)),
+            torch.sqrt(torch.where(sq_t > 0, sq_t, one.to(sq_t.dtype))))
+
+
+def _masked_mean_one_minus(cos: torch.Tensor, mask: torch.Tensor):
+    return ((1.0 - cos) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def cosine_distill_loss(out, target, mask, eps: float = 1e-8):
+    """mean over masked voxels of (1 - cos(out, target))
+    (run/distill.py:324-326; torch.nn.CosineSimilarity eps semantics)."""
+    dot = (out * target).sum(-1)
+    sq_o = (out * out).sum(-1)
+    sq_t = (target * target).sum(-1)
+    norm_o, norm_t = _guarded_norms(sq_o, sq_t)
+    cos = dot / (norm_o * norm_t).clamp_min(eps)
+    return _masked_mean_one_minus(cos, mask)
+
+
+def cosine_head_loss(feats, w_final, target, mask, eps: float = 1e-8):
+    """Cosine distill loss computed in pre-head space.
+
+    With out = feats @ W (the final 1x1 conv, W: (C, D) with D=768/512):
+      dot(out, t) = feats . (t @ W^T)          -- (cap, C)
+      |out|^2     = feats . (feats @ (W W^T))  -- via the (C, C) Gram matrix
+    so the (cap, D) head output and its cotangent never materialize, while
+    the loss is the same function of the parameters."""
+    wf = w_final[0] if w_final.dim() == 3 else w_final  # (C, D)
+    cdtype = feats.dtype
+    u = matmul_f32(target.to(cdtype), wf.t().to(cdtype))    # (cap, C)
+    gram = wf @ wf.t()
+    sq_t = (target.float() ** 2).sum(-1)
+    f32 = feats.float()
+    dot = (f32 * u).sum(-1)
+    sq_o = ((f32 @ gram.float()) * f32).sum(-1)
+    norm_o, norm_t = _guarded_norms(sq_o, sq_t)
+    cos = dot / (norm_o * norm_t).clamp_min(eps)
+    return _masked_mean_one_minus(cos, mask)
+
+
+def l1_distill_loss(out, target, mask):
+    diff = ((out - target).abs() * mask[:, None]).sum()
+    return diff / (mask.sum() * out.shape[-1]).clamp_min(1.0)
+
+
+def make_optimizer(cfg: Config, model: torch.nn.Module, max_iter: int
+                   ) -> Tuple[torch.optim.Optimizer, Callable[[int], float]]:
+    """Adam (betas 0.9/0.999, eps 1e-8, no weight decay) and the schedule
+    ``lr(it) = base_lr * lr_multiplier * max(1 - it/max_iter, 0)**power``.
+    The train step writes ``lr(it)`` into the optimizer before update
+    number ``it``."""
+    def schedule(it: int) -> float:
+        frac = max(1.0 - it / max_iter, 0.0)
+        return cfg.base_lr * cfg.lr_multiplier * frac ** cfg.power
+
+    opt = torch.optim.Adam(model.parameters(), lr=schedule(0),
+                           betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    return opt, schedule
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    return (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+            else torch.float32)
+
+
+class TrainStep:
+    """``step(batch) -> loss``: one update on a host-geometry
+    :class:`DistillBatch`.  ``it`` counts the updates taken (the schedule's
+    argument); the loss comes back as a 0-d device tensor, so the caller
+    decides when to wait for the device."""
+
+    def __init__(self, cfg: Config, model: MinkUNet,
+                 optimizer: torch.optim.Optimizer,
+                 schedule: Callable[[int], float], device, it: int = 0):
+        if cfg.loss_type not in ("cosine", "l1"):
+            raise NotImplementedError(cfg.loss_type)
+        self.cfg, self.model, self.optimizer = cfg, model, optimizer
+        self.schedule, self.device, self.it = schedule, device, it
+        self.cdtype = compute_dtype(cfg)
+
+    def loss(self, batch: DistillBatch) -> torch.Tensor:
+        cfg, dev = self.cfg, self.device
+        geo = geometry_to_device(batch.geo, dev)
+        x = torch.as_tensor(batch.feats, device=dev).to(self.cdtype)
+        # targets ship fp16 from the host (storage dtype); compute in cdtype
+        target = torch.as_tensor(batch.feat_3d, device=dev).to(self.cdtype)
+        mask = torch.as_tensor(batch.mask, device=dev)
+        const_in = not cfg.input_color
+        if cfg.loss_type == "cosine" and cfg.memory_efficient_loss:
+            feats = self.model(x, geo, constant_input=const_in,
+                               return_prehead=True)
+            return cosine_head_loss(feats, self.model.final, target, mask)
+        out = self.model(x, geo, constant_input=const_in)
+        if cfg.loss_type == "cosine":
+            return cosine_distill_loss(out, target, mask)
+        return l1_distill_loss(out, target, mask)
+
+    def __call__(self, batch: DistillBatch) -> torch.Tensor:
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(batch)
+        loss.backward()
+        lr = self.schedule(self.it)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.it += 1
+        return loss.detach()
+
+
+def make_train_step(cfg: Config, model: MinkUNet,
+                    optimizer: torch.optim.Optimizer,
+                    schedule: Callable[[int], float], device,
+                    it: int = 0) -> TrainStep:
+    return TrainStep(cfg, model, optimizer, schedule, device, it)
+
+
+def make_val_step(cfg: Config):
+    """Per-batch validation ``step(model, text, batch)``: point-level logits
+    vs text + IoU histograms (reference validate(), run/distill.py:403-447).
+    Returns (loss_sum, n_valid_points, inter, union, tgt) as device tensors;
+    ``batch`` is an ``eval_all`` :class:`SegBatch`."""
+    cdtype = compute_dtype(cfg)
+    const_in = not cfg.input_color
+    classes, ignore = cfg.classes, cfg.ignore_label
+
+    @torch.no_grad()
+    def step(model: MinkUNet, text: torch.Tensor, batch: SegBatch):
+        dev = text.device
+        model.eval()
+        geo = geometry_to_device(batch.geo, dev)
+        x = torch.as_tensor(batch.feats, device=dev).to(cdtype)
+        out = model(x, geo, constant_input=const_in)
+        logits_v = out @ text.t().float()
+        inds = torch.as_tensor(batch.inds_reconstruct, device=dev).long()
+        logits = logits_v.index_select(0, inds)
+        labels = torch.as_tensor(batch.point_labels, device=dev).long()
+        pred = logits.argmax(-1)
+        # cross-entropy with ignore 255 (over valid points only)
+        logp = torch.log_softmax(logits, dim=-1)
+        valid = labels != 255
+        safe = torch.where(valid, labels, torch.zeros_like(labels))
+        ce = -logp.gather(1, safe[:, None])[:, 0]
+        loss_sum = (ce * valid).sum()
+        n_valid = valid.sum()
+        # per-class histograms (metrics.intersection_and_union on tensors)
+        pred = torch.where(labels == ignore, torch.full_like(pred, ignore),
+                           pred)
+        ids = torch.arange(classes, device=dev)
+        out_1h = pred[:, None] == ids[None, :]
+        tgt_hist = (labels[:, None] == ids[None, :]).sum(0)
+        inter = (out_1h & (pred == labels)[:, None]).sum(0)
+        union = out_1h.sum(0) + tgt_hist - inter
+        return loss_sum, n_valid, inter, union, tgt_hist
+
+    return step
+
+
+class DistillTrainer:
+    def __init__(self, cfg: Config, allow_pseudo_text: bool = False,
+                 device=None):
+        if cfg.data_parallel > 1 or cfg.model_parallel > 1:
+            raise NotImplementedError(
+                "multi-GPU training (data_parallel/model_parallel > 1) is "
+                "not ported yet (ROADMAP: multi-GPU eval and training)")
+        if str(cfg.device_geometry).lower() in ("on", "true", "1"):
+            raise NotImplementedError(
+                "device_geometry 'on' is not ported yet (ROADMAP: geometry "
+                "on the GPU); 'auto' builds geometry on the host")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dim = output_dim(cfg.feature_2d_extractor)
+        gen = torch.Generator().manual_seed(cfg.manual_seed)
+        self.model = MinkUNet(3, self.dim, cfg.arch_3d,
+                              generator=gen).to(self.device)
+        if cfg.sync_bn:
+            log.warning("sync_bn=True has no effect on a single device")
+
+        self.train_data = FusedFeatureLoader(
+            datapath_prefix=cfg.data_root,
+            datapath_prefix_feat=cfg.data_root_2d_fused_feature,
+            voxel_size=cfg.voxel_size, split="train", aug=cfg.aug,
+            memcache=cfg.use_shm, loop=cfg.loop,
+            input_color=cfg.input_color, seed=cfg.manual_seed)
+        self.batches_per_epoch = max(
+            len(self.train_data) // max(cfg.batch_size, 1), 1)
+        self.max_iter = cfg.epochs * self.batches_per_epoch
+        self.optimizer, self.schedule = make_optimizer(cfg, self.model,
+                                                       self.max_iter)
+        self.step_fn = make_train_step(cfg, self.model, self.optimizer,
+                                       self.schedule, self.device)
+        self.val_step = make_val_step(cfg)
+        self.rng = np.random.default_rng(cfg.manual_seed)
+        self.start_epoch = cfg.start_epoch
+        self.best_iou = 0.0
+
+        labelset_name = dataset_name_from_root(cfg.data_root)
+        labels, _, _ = labelset_and_palette(labelset_name)
+        text = extract_text_features(
+            labels, cfg.feature_2d_extractor, cfg.data_root, cfg.prompt_eng,
+            cfg.text_embedding_cache, embedding_file=cfg.embedding_file,
+            allow_pseudo=allow_pseudo_text or cfg.allow_pseudo_text,
+            dataset_name=labelset_name)
+        self.text = torch.as_tensor(np.asarray(text, dtype=np.float32),
+                                    device=self.device)
+        if cfg.evaluate:
+            self.val_data = Point3DLoader(
+                datapath_prefix=cfg.data_root, voxel_size=cfg.voxel_size,
+                split="val", aug=False, memcache=cfg.use_shm, eval_all=True,
+                input_color=cfg.input_color, seed=cfg.manual_seed + 1)
+        if cfg.resume and isfile(cfg.resume):
+            payload = load_checkpoint(cfg.resume)
+            self.model.load_state_dict(payload["model"])
+            self.optimizer.load_state_dict(payload["optimizer"])
+            self.start_epoch = int(payload.get("epoch", 0))
+            self.best_iou = float(payload.get("best_iou", 0.0))
+            self.step_fn.it = self.start_epoch * self.batches_per_epoch
+            log.info("resumed from %s (epoch %d)", cfg.resume,
+                     self.start_epoch)
+
+    @property
+    def global_step(self) -> int:
+        return self.step_fn.it
+
+    def _epoch_batches(self):
+        """Batches built ``workers`` threads ahead of the device step
+        (replaces the reference's DataLoader worker pool)."""
+        order = self.rng.permutation(len(self.train_data))
+        bs = max(self.cfg.batch_size, 1)
+
+        def build(i):
+            idxs = order[i * bs:(i + 1) * bs]
+            samples = [self.train_data.get(j) for j in idxs]
+            return assemble_distill_batch(samples, self.dim, rng=self.rng)
+
+        if self.cfg.workers <= 1:
+            for i in range(self.batches_per_epoch):
+                yield build(i)
+        else:
+            from ..data.prefetch import Prefetcher
+            yield from Prefetcher(build, range(self.batches_per_epoch),
+                                  workers=self.cfg.workers)
+
+    def train_epoch(self, epoch: int, writer: Optional[ScalarWriter] = None):
+        loss_meter = AverageMeter()
+        data_meter = AverageMeter()
+        batch_meter = AverageMeter()
+        end = time.time()
+        for i, batch in enumerate(self._epoch_batches()):
+            data_meter.update(time.time() - end)
+            loss = float(self.step_fn(batch))  # waits for the device
+            loss_meter.update(loss, self.cfg.batch_size)
+            batch_meter.update(time.time() - end)
+            end = time.time()
+            if (i + 1) % self.cfg.print_freq == 0:
+                log.info(
+                    "Epoch: [%d/%d][%d/%d] Data %.3f (%.3f) Batch %.3f "
+                    "(%.3f) Loss %.4f LR %.2e", epoch + 1, self.cfg.epochs,
+                    i + 1, self.batches_per_epoch, data_meter.val,
+                    data_meter.avg, batch_meter.val, batch_meter.avg,
+                    loss_meter.val, self.schedule(self.global_step))
+            if writer:
+                writer.add_scalar("loss_train_batch", loss, self.global_step)
+        return loss_meter.avg
+
+    def validate(self) -> Tuple[float, float, float, float]:
+        loss_meter = AverageMeter()
+        inter = np.zeros(self.cfg.classes)
+        union = np.zeros(self.cfg.classes)
+        tgt = np.zeros(self.cfg.classes)
+        for i in range(len(self.val_data)):
+            sample = self.val_data.get(i)
+            batch = assemble_seg_batch([sample], eval_all=True)
+            ls, nv, bi, bu, bt = self.val_step(self.model, self.text, batch)
+            loss_meter.update(float(ls) / max(int(nv), 1))
+            inter += bi.cpu().numpy()
+            union += bu.cpu().numpy()
+            tgt += bt.cpu().numpy()
+        miou, macc, allacc = metrics.miou_from_histograms(inter, union, tgt)
+        log.info("Val result: mIoU/mAcc/allAcc %.4f/%.4f/%.4f", miou, macc,
+                 allacc)
+        return loss_meter.avg, miou, macc, allacc
+
+    def fit(self):
+        cfg = self.cfg
+        writer = ScalarWriter(cfg.save_path)
+        for epoch in range(self.start_epoch, cfg.epochs):
+            loss_train = self.train_epoch(epoch, writer)
+            epoch_log = epoch + 1
+            writer.add_scalar("loss_train", loss_train, epoch_log)
+            is_best = False
+            if cfg.evaluate and epoch_log % cfg.eval_freq == 0:
+                loss_val, miou, macc, allacc = self.validate()
+                for tag, v in (("loss_val", loss_val), ("mIoU_val", miou),
+                               ("mAcc_val", macc), ("allAcc_val", allacc)):
+                    writer.add_scalar(tag, v, epoch_log)
+                is_best = miou > self.best_iou
+                self.best_iou = max(self.best_iou, miou)
+            if epoch_log % cfg.save_freq == 0:
+                save_checkpoint({
+                    "epoch": epoch_log,
+                    "model": self.model.state_dict(),
+                    "optimizer": self.optimizer.state_dict(),
+                    "best_iou": self.best_iou,
+                }, is_best, join(cfg.save_path, "model"))
+        log.info("==>Training done!\nBest Iou: %.3f", self.best_iou)
+        return self.best_iou
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    cfg_path, device, rest = None, None, []
+    it = iter(argv)
+    for a in it:
+        if a == "--config" or a.startswith("--config="):
+            cfg_path = a.split("=", 1)[1] if "=" in a else next(it)
+        elif a == "--device" or a.startswith("--device="):
+            device = a.split("=", 1)[1] if "=" in a else next(it)
+        else:
+            rest.append(a)
+    cfg = load_config(cfg_path, tuple(rest))
+    os.makedirs(join(cfg.save_path, "model"), exist_ok=True)
+    trainer = DistillTrainer(cfg, device=device)
+    return trainer.fit()
+
+
+if __name__ == "__main__":
+    main()

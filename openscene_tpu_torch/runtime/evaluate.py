@@ -261,8 +261,9 @@ def load_model_for_eval(cfg: Config, device=None) -> Optional[MinkUNet]:
     run/evaluate.py:164-165).
 
     ``cfg.model_path`` may be a reference ``.pth(.tar)`` checkpoint with
-    MinkowskiEngine names (converted) or a torch file holding the port's own
-    ``MinkUNet`` state_dict (loaded as is).  Without a path the weights are
+    MinkowskiEngine names (converted), a torch file holding the port's own
+    ``MinkUNet`` state_dict (loaded as is), or a checkpoint written by the
+    port's trainer (its ``"model"`` entry).  Without a path the weights are
     random, drawn from ``cfg.manual_seed``."""
     if cfg.feature_type == "fusion":
         return None
@@ -280,8 +281,9 @@ def load_model_for_eval(cfg: Config, device=None) -> Optional[MinkUNet]:
             raise NotImplementedError(
                 f"{path} is not a torch checkpoint; the JAX package's "
                 "flax-msgpack checkpoints are not readable yet") from e
-        sd = payload.get("state_dict", payload) if isinstance(payload, dict) \
-            else payload
+        sd = payload
+        if isinstance(payload, dict):
+            sd = payload.get("model", payload.get("state_dict", payload))
         if set(sd) == set(model.state_dict()):
             model.load_state_dict(sd)
             log.info("loaded port state_dict %s", path)

@@ -19,8 +19,11 @@ import torch
 
 from openscene_tpu_torch import device as device_mod
 from openscene_tpu_torch.sparse import _build
-from openscene_tpu_torch.sparse.edge_conv import down_conv_fwd
-from openscene_tpu_torch.sparse.stencil_conv import stencil_conv_fwd
+from openscene_tpu_torch.sparse.edge_conv import (down_conv_bwd,
+                                                  down_conv_fwd, up_conv_bwd)
+from openscene_tpu_torch.sparse.stencil_conv import (stencil_conv_bwd,
+                                                     stencil_conv_fwd)
+from openscene_tpu_torch.sparse.types import DownPlan
 from tests.test_torch_unet import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,7 +50,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 '''
 
 
@@ -56,7 +59,12 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert int(proc.stdout.split()[-1]) >= 25  # every module was imported
+    names = proc.stdout.split()  # every module was imported
+    assert len(names) >= 26
+    for mod in ("runtime.distill", "runtime.evaluate", "data.batch",
+                "utils.train_utils", "sparse.edge_conv",
+                "sparse.stencil_conv", "sparse.ops", "convert"):
+        assert "openscene_tpu_torch." + mod in names
 
 
 def test_cpu_forward_touches_no_other_device():
@@ -108,8 +116,50 @@ def test_wrapper_never_falls_back_off_cpu(wrapper, K):
     assert wrapper.launches == 0
 
 
+def test_trainer_defaults_to_cuda(monkeypatch):
+    from openscene_tpu_torch.config import Config
+    from openscene_tpu_torch.runtime import distill
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="not available"):
+        distill.DistillTrainer(Config())
+    with pytest.raises(RuntimeError, match="not available"):
+        distill.main(["epochs", "1"])
+
+
+@pytest.mark.parametrize("which", ["stencil", "down", "up"])
+def test_bwd_wrapper_never_falls_back_off_cpu(which):
+    def meta(shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    plan = DownPlan(fwd=meta((8, 32), torch.int32),
+                    child_parent=meta((64,), torch.int32),
+                    child_offset=meta((64,), torch.int32))
+    w = torch.empty((8, 32, 32), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if which == "stencil":
+            stencil_conv_bwd(meta((64, 32)), torch.empty((27, 32, 32),
+                                                         device="meta"),
+                             meta((64, 32)), meta((27, 64), torch.int32),
+                             meta((27,), torch.int32))
+        elif which == "down":
+            down_conv_bwd(meta((64, 32)), w, meta((32, 32)), plan)
+        else:
+            up_conv_bwd(meta((32, 32)), w, meta((64, 32)), plan)
+    assert (stencil_conv_bwd.launches == down_conv_bwd.launches
+            == up_conv_bwd.launches == 0)
+
+
+def test_wgrad_split_covers_the_rows():
+    from openscene_tpu_torch.sparse.stencil_conv import wgrad_split
+    for rows, K, ca, cb in ((300032, 27, 128, 96), (4096, 27, 256, 256),
+                            (136704, 8, 32, 32), (1, 8, 8, 8), (33, 27, 8, 8)):
+        per, splits = wgrad_split(rows, K, ca, cb)
+        assert per % 32 == 0 and per >= 1024 and 1 <= splits <= 65535
+        assert (splits - 1) * per < rows <= splits * per
+
+
 def test_kernel_build_is_content_hashed(monkeypatch):
-    assert _build.sources() == ["gather_gemm_fwd"]
+    assert _build.sources() == ["gather_gemm_bwd", "gather_gemm_fwd"]
     path = _build.library_path("gather_gemm_fwd")
     assert path.startswith(_build.BUILD_DIR)
     assert path == _build.library_path("gather_gemm_fwd")

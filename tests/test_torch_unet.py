@@ -8,6 +8,11 @@ arrays on both sides.  Also the committed
 ME-format MinkUNet14A, see tests/test_unet_golden_parity.py), reached
 through the port's own ``convert_state_dict``.
 
+The training-mode forward (batch statistics, updated BatchNorm buffers) is
+held against ``apply_unet(..., train=True)`` in fp32, for MinkUNet14A and
+for the bottleneck MinkUNet50: outputs to the fp32 tolerance below and every
+updated ``mean``/``var`` to ``rtol=1e-4, atol=1e-5``.
+
 Tolerances: fp32 ``rtol=1e-4`` with ``atol=1e-4 * max|ref|`` (summation
 order only).  bf16: every layer rounds its output to bf16, and a one-ulp
 difference in one layer moves the next layer's inputs, so the two sides
@@ -24,7 +29,7 @@ import pytest
 import torch
 
 from openscene_tpu.models import apply_unet, init_unet
-from openscene_tpu_torch.convert import params_from_jax
+from openscene_tpu_torch.convert import flatten_tree, params_from_jax
 from openscene_tpu_torch.models import MinkUNet
 from openscene_tpu_torch.sparse.edge_conv import down_conv_fwd
 from openscene_tpu_torch.sparse.geometry import (build_unet_geometry,
@@ -141,6 +146,47 @@ def test_unet_forward_matches_jax(case, dtype, constant_input):
         assert err.max() <= 2 * 2.0 ** -7 * scale, err.max() / scale
         assert err.mean() <= 2.0 ** -9 * scale, err.mean() / scale
     assert stencil_conv_fwd.launches == 0 and down_conv_fwd.launches == 0
+
+
+@pytest.mark.parametrize("arch,prehead", [("MinkUNet14A", False),
+                                          ("MinkUNet50", True)])
+def test_unet_training_forward_matches_jax(arch, prehead):
+    # 16 voxels at the coarsest level: batch statistics over a handful of
+    # rows would amplify fp32 rounding beyond any summation-order tolerance
+    coords = _surface_coords(2, n=2500, span=64)
+    geo = build_unet_geometry(coords)
+    assert int(geo.levels[4].num) >= 16
+    n = len(coords)
+    x = np.zeros((geo.levels[0].cap, 3), np.float32)
+    x[:n] = np.random.default_rng(6).standard_normal((n, 3))
+    params, state = numpy_unet_trees(arch, 3, 24, seed=3)
+    model = MinkUNet(3, 24, arch).train()
+    model.load_state_dict(params_from_jax(params, state, arch))
+    ref, new_state = jax.jit(lambda p, s, xx: apply_unet(
+        p, s, xx, geo, arch=arch, train=True, return_prehead=prehead))(
+            params, state, jnp.asarray(x))
+    ref = np.asarray(ref, np.float32)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), geometry_to_device(geo, "cpu"),
+                    return_prehead=prehead).numpy()
+    assert out.shape == ref.shape and not out[n:].any()
+    np.testing.assert_allclose(out, ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref[:n]).max())
+    buffers = dict(model.named_buffers())
+    want = flatten_tree(new_state)
+    assert set(want) == set(buffers)
+    old = flatten_tree(state)
+    for name, v in want.items():
+        assert not np.allclose(v, old[name]), name  # the statistics moved
+        np.testing.assert_allclose(buffers[name].numpy(), v, rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+    # eval mode reads the buffers and leaves them alone
+    model.eval()
+    with torch.no_grad():
+        model(torch.from_numpy(x), geometry_to_device(geo, "cpu"))
+    for name, v in want.items():
+        np.testing.assert_allclose(buffers[name].numpy(), v, rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
 
 
 def test_prehead_shape(case):
