@@ -4,8 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds every
-   CUDA kernel of the port from ``openscene_tpu_torch/csrc`` with ``nvcc``
-   into ``build/kernels``;
+   CUDA kernel of the port from ``openscene_tpu_torch/csrc`` (four sources,
+   one ``nvcc`` each, all started together) into ``build/kernels``;
 2. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (forward kernels on scene 0's geometry, backward
    kernels on the first train batch's; tolerance: one bf16 ulp of the output
@@ -14,7 +14,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    gradients, which differ only in the order of their fp32 sums) and times
    the kernel, the plain version and a library yardstick (``index_select``
    + ``torch.matmul``, the im2col formulation, which the port never calls);
-3. drives the serving path: zero-shot evaluation of MinkUNet18A at 768-d
+3. builds the first train batch's geometry on the card from its level-0
+   coordinates, with the occupancy grid and with the search path (stem
+   occupancy on), and requires every array to equal the NumPy builder's for
+   the same caps bit for bit, with no overflow; prints the build times, the
+   NumPy planner's time and the bytes a raw and a host-geometry batch copy
+   to the card;
+4. holds kernel 5 (the up conv over the children, ``up_conv_fwd``) against
+   its plain version at the four edges of that batch (one bf16 ulp, padded
+   rows exactly 0) beside the model's dense route, and drives kernel 7 (the
+   pair-packed transpose, ``pack_pairs_t``) through its benchmark
+   (``scripts/dev_pack_bench.bench_pack``) at its five shapes, where kernel,
+   plain version and one PyTorch call must be bit-equal;
+5. drives the serving path: zero-shot evaluation of MinkUNet18A at 768-d
    OpenSeg width through ``runtime.evaluate.ZeroShotEvaluator`` on ``cuda``,
    in ensemble and distill modes, on 2 synthetic ScanNet-like scenes at 2 cm
    (about 125k voxels each), random weights from a seed and pseudo text
@@ -23,19 +35,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    and the down-conv kernel 4 times per scene forward.  The outputs must be
    finite, and one scene's logits from the kernel path must match the same
    model run through the plain versions on the card;
-4. drives the training path: ``runtime.distill.DistillTrainer`` on ``cuda``,
-   MinkUNet18A, 768-d, cosine loss, bf16, batches of 2 synthetic train
-   scenes at 2 cm (about 270k voxels), 3 steps.  The launch counters are set
-   to 0 before each step and read after it: 32 stencil and 4 down-conv
-   forward launches and 32 stencil, 4 down-conv and 4 up-conv backward
-   launches per step.  Losses must be finite and the third below the first.
-   Then one more step runs from the same model and optimizer state through
-   the kernels, through the plain versions, and through the plain versions
-   in fp32: the loss and the updated parameters of the first two must
-   agree, and the kernel path's gradients must be as close to the fp32
-   step's as the plain bf16 path's are (``compare_train_step`` states the
-   limits and why bf16 noise is measured rather than assumed);
-5. prints the card line, one ``{"kernels": [...]}`` JSON line, and last
+6. drives the training path: ``runtime.distill.DistillTrainer`` on ``cuda``
+   (device geometry ``auto``, so on), MinkUNet18A, 768-d, cosine loss,
+   bf16, batches of 2 synthetic train scenes at 2 cm (about 270k voxels),
+   3 steps.  The launch counters are set to 0 before each step and read
+   after it: 32 stencil and 4 down-conv forward launches and 32 stencil, 4
+   down-conv and 4 up-conv backward launches per step, and no overflow.
+   Losses must be finite and the third below the first.  One step through
+   device geometry and one through host geometry on the same batch, caps
+   and starting state must give the same loss and gradients exactly.  Then
+   one more step runs from the same model and optimizer state through the
+   kernels, through the plain versions, and through the plain versions in
+   fp32: the loss and the updated parameters of the first two must agree,
+   and the kernel path's gradients must be as close to the fp32 step's as
+   the plain bf16 path's are (``compare_train_step`` states the limits and
+   why bf16 noise is measured rather than assumed);
+7. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
+   train batch with few iterations: the main path of kernel 5;
+8. prints the card line, one ``{"kernels": [...]}`` JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
@@ -71,14 +88,22 @@ RESOLVED = 0.1              # an element's |fp32 grad| over its tensor's max
 PARAM_TOL_RESOLVED = 0.5    # updated parameters, kernels against plain, as
 PARAM_TOL_MEAN = 0.02       # fractions of the step's learning rate
 PARAM_TOL_ALL = 1.0
+BENCH_ITERS = 3             # per-op benchmark on the train batch
 REPLACES = {
     "stencil_conv_fwd": "openscene_tpu/sparse/pallas_conv.py:371",
     "stencil_conv_bwd": "openscene_tpu/sparse/pallas_conv.py:447",
     "down_conv_fwd": "openscene_tpu/sparse/pallas_edge.py:312",
     "up_conv_bwd": "openscene_tpu/sparse/pallas_edge.py:374",
-    "down_conv_bwd": "openscene_tpu/sparse/pallas_edge.py:522"}
+    "down_conv_bwd": "openscene_tpu/sparse/pallas_edge.py:522",
+    "up_conv_fwd": "openscene_tpu/sparse/pallas_edge.py:454",
+    "pack_pairs_t": "scripts/dev_pack_bench.py:42"}
 FWD_SOURCE = "openscene_tpu_torch/csrc/gather_gemm_fwd.cu"
 BWD_SOURCE = "openscene_tpu_torch/csrc/gather_gemm_bwd.cu"
+SOURCES = {"stencil_conv_fwd": FWD_SOURCE, "down_conv_fwd": FWD_SOURCE,
+           "stencil_conv_bwd": BWD_SOURCE, "up_conv_bwd": BWD_SOURCE,
+           "down_conv_bwd": BWD_SOURCE,
+           "up_conv_fwd": "openscene_tpu_torch/csrc/up_conv_fwd.cu",
+           "pack_pairs_t": "openscene_tpu_torch/csrc/pack_pairs_t.cu"}
 
 
 def log(*a):
@@ -129,7 +154,7 @@ def train_config(d3, dfeat):
                   feature_2d_extractor="openseg", voxel_size=VOXEL,
                   arch_3d=ARCH, loss_type="cosine",
                   compute_dtype="bfloat16", batch_size=TRAIN_BATCH,
-                  epochs=1, loop=TRAIN_STEPS + 3, workers=1,
+                  epochs=1, loop=TRAIN_STEPS + 7, workers=1,
                   evaluate=False, manual_seed=0, allow_pseudo_text=True,
                   text_embedding_cache="",
                   save_path=os.path.join(HERE, "build", "smoke_exp"))
@@ -372,6 +397,196 @@ def kernels_phase_bwd(geo):
             "down_conv_bwd": down}
 
 
+def geo_arrays(geo):
+    """{name: tensor} of every array of a geometry (levels, plans, edges,
+    stem occupancy), for a bit-for-bit comparison."""
+    out = {}
+    for i, lv in enumerate(geo.levels):
+        out[f"levels[{i}].coords"] = lv.coords
+    for name, plan in [("stem", geo.stem)] + [
+            (f"self3[{i}]", p) for i, p in enumerate(geo.self3)]:
+        if plan.fwd is not None:
+            out[f"{name}.fwd"] = plan.fwd
+        out[f"{name}.flip_perm"] = plan.flip_perm
+    for e, d in enumerate(geo.down):
+        for f in d._fields:
+            out[f"down[{e}].{f}"] = getattr(d, f)
+    return out
+
+
+def geometry_phase(raw, caps, host_geo, t_numpy, card):
+    """The raw batch's geometry built on the card, grid and search paths,
+    stem occupancy on, against the NumPy builder's for the same caps."""
+    import numpy as np
+    import torch
+    from openscene_tpu_torch.sparse.geometry_device import (
+        build_geometry_parts, with_host_counts)
+    dev = torch.device("cuda")
+    coords = torch.as_tensor(raw.coords, device=dev)
+    num = int(raw.num)
+    ref = {k: np.asarray(v) for k, v in geo_arrays(host_geo).items()}
+    ref_occ = (np.asarray(host_geo.stem.fwd)
+               < int(host_geo.levels[0].num)).astype(np.float32)
+    times = {}
+    for path, n_scenes in (("grid", TRAIN_BATCH), ("search", None)):
+        def build():
+            return build_geometry_parts(coords, num, caps,
+                                        stem_occupancy=True,
+                                        n_scenes=n_scenes)
+        geo, over = with_host_counts(*build())
+        if over:
+            raise AssertionError(
+                f"geometry on the card ({path}) overflowed for caps {caps}: "
+                "the scenes leave the grid (set grid_dims0) or a level cap")
+        got = geo_arrays(geo)
+        if set(got) != set(ref) - {"stem.fwd"}:
+            raise AssertionError(f"{path}: arrays {sorted(got)}")
+        for name, arr in got.items():
+            if not np.array_equal(arr.cpu().numpy(), ref[name]):
+                raise AssertionError(f"{path}: {name} differs from the NumPy "
+                                     "builder's")
+        if [lv.num for lv in geo.levels] != [int(lv.num)
+                                             for lv in host_geo.levels]:
+            raise AssertionError(f"{path}: level counts differ")
+        if not np.array_equal(geo.stem_occ.float().cpu().numpy(), ref_occ):
+            raise AssertionError(f"{path}: stem occupancy differs")
+        del geo, got
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with_host_counts(*build())
+        wall = time.time() - t0
+        times[path] = (cuda_time_ms(build, iters=5, warmup=1), wall * 1e3)
+    # what each step copies to the card: the level-0 buffers (features,
+    # 768-d fp16 targets, mask) in both cases, and the geometry: the raw
+    # batch's coordinates or every plan array of the host builder
+    common = sum(np.asarray(a).nbytes for a in (raw.feats, raw.feat_3d,
+                                                 raw.mask))
+    raw_geo = np.asarray(raw.coords).nbytes
+    host_geo_bytes = sum(a.nbytes for a in ref.values())
+    print(f"geometry on the card: {len(ref) - 1} arrays and the stem "
+          f"occupancy bit-identical to the NumPy builder (caps {caps}), no "
+          f"overflow; build grid {times['grid'][0]:.3f} ms (wall with the "
+          f"count read {times['grid'][1]:.1f} ms), search "
+          f"{times['search'][0]:.3f} ms (wall {times['search'][1]:.1f} ms); "
+          f"NumPy planner {t_numpy * 1e3:.1f} ms; geometry bytes to the "
+          f"card per batch: raw {raw_geo} ({raw_geo / 2**20:.1f} MiB), "
+          f"host {host_geo_bytes} ({host_geo_bytes / 2**20:.1f} MiB), "
+          f"besides {common} ({common / 2**20:.1f} MiB) of features, "
+          f"targets and mask in both [{card}]", flush=True)
+    return {"build_grid_ms": times["grid"][0],
+            "build_search_ms": times["search"][0],
+            "numpy_planner_ms": t_numpy * 1e3, "raw_geometry_bytes": raw_geo,
+            "host_geometry_bytes": host_geo_bytes, "level0_bytes": common}
+
+
+def up_kernel_phase(geo):
+    """Kernel 5 against its plain version at the four edges of the train
+    batch (MinkUNet18A's decoder widths), timed beside the model's dense
+    route (the library yardstick)."""
+    import torch
+    from openscene_tpu_torch.sparse.edge_conv import (group_children,
+                                                      launch_up_conv,
+                                                      up_conv_dense_fwd,
+                                                      up_conv_fwd,
+                                                      up_conv_plain)
+    from openscene_tpu_torch.sparse.types import DownPlan
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = []
+    for edge, (cin, cout) in ((0, (96, 96)), (1, (128, 96)), (2, (128, 128)),
+                              (3, (256, 128))):
+        plan = DownPlan(*geo.down[edge])
+        child, parent = geo.levels[edge], geo.levels[edge + 1]
+        x = torch.randn((parent.cap, cin), generator=gen, device="cuda")
+        x[parent.num:] = 0
+        x = x.to(torch.bfloat16)
+        w = torch.randn((8, cin, cout), generator=gen, device="cuda") * \
+            (2.0 / (8 * cout)) ** 0.5
+        out = up_conv_fwd(x, w, plan)
+        ref = up_conv_plain(x, w, plan)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = BF16_ULP * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"up_conv_fwd edge {edge} {cin}->{cout}: "
+                                 f"max|kernel-plain| {err} > {tol}")
+        if out[child.num:].any():
+            raise AssertionError("up_conv_fwd: padded child rows not zero")
+        # bytes: parent rows read, child rows written, child_parent,
+        # child_offset and the grouped index, the weights; operations: one
+        # product per valid child
+        nbytes = (parent.num * cin + child.num * cout) * 2 \
+            + 3 * child.num * 4 + 8 * cin * cout * 2
+        flops = 2.0 * child.num * cin * cout
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        wb = w.to(torch.bfloat16)
+        grouped = group_children(plan.child_offset)
+        cases.append({
+            "shape": f"edge {edge} K=8 {cin}->{cout} parent rows "
+                     f"{parent.cap} (valid {parent.num}), child rows "
+                     f"{child.cap} (valid {child.num})",
+            "max_abs_err": err, "tol": tol,
+            "ms": cuda_time_ms(lambda: up_conv_fwd(x, w, plan)),
+            "plain_ms": cuda_time_ms(lambda: up_conv_plain(x, w, plan),
+                                     iters=5),
+            "library_ms": cuda_time_ms(
+                lambda: up_conv_dense_fwd(x, w, plan), iters=5),
+            # the launch alone and the grouping alone (both inside "ms")
+            "launch_only_ms": cuda_time_ms(lambda: launch_up_conv(
+                x, wb, plan.child_parent, *grouped)),
+            "grouping_ms": cuda_time_ms(
+                lambda: group_children(plan.child_offset)),
+            "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"})
+    return cases
+
+
+def compare_raw_host(trainer, raw, caps, host_batch):
+    """One step through device geometry and one through host geometry on
+    the same batch, caps and starting state: with bit-identical plans and
+    deterministic kernels the loss and every gradient must be identical.
+    The trainer's state is put back afterwards."""
+    import copy
+    import torch
+    model, opt, step = trainer.model, trainer.optimizer, trainer.step_fn
+    state0 = copy.deepcopy(model.state_dict())
+    opt0 = copy.deepcopy(opt.state_dict())
+    it0 = step.it
+
+    def run(fn):
+        model.load_state_dict(state0)
+        opt.load_state_dict(copy.deepcopy(opt0))
+        step.it = it0
+        zero_counts()
+        loss = fn()
+        torch.cuda.synchronize()
+        if read_counts() != expected(TRAIN_LAUNCHES):
+            raise AssertionError(f"launches {read_counts()}")
+        return (loss, {n: p.grad.clone() for n, p in model.named_parameters()},
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+
+    def raw_step():
+        loss, over = trainer._raw_step(caps)(raw)
+        if over:
+            raise AssertionError("the raw step overflowed")
+        return loss
+
+    loss_r, grads_r, params_r = run(raw_step)
+    loss_h, grads_h, params_h = run(lambda: step(host_batch))
+    same_g = [n for n in grads_h if torch.equal(grads_r[n], grads_h[n])]
+    same_p = [n for n in params_h if torch.equal(params_r[n], params_h[n])]
+    print(f"raw step vs host step (same batch, caps {caps}, same state): "
+          f"loss {loss_r.item():.9g} vs {loss_h.item():.9g}, "
+          f"{len(same_g)}/{len(grads_h)} gradients and {len(same_p)}/"
+          f"{len(params_h)} updated parameters identical", flush=True)
+    if not (torch.equal(loss_r, loss_h) and len(same_g) == len(grads_h)
+            and len(same_p) == len(params_h)):
+        raise AssertionError("the device-geometry step differs from the "
+                             "host-geometry step")
+    model.load_state_dict(state0)
+    opt.load_state_dict(copy.deepcopy(opt0))
+    step.it = it0
+
+
 def profile_device(fn, what):
     """Device time by kernel of one call of ``fn`` under torch.profiler."""
     import torch
@@ -455,19 +670,22 @@ def plain_path():
 
 @functools.lru_cache(maxsize=None)
 def wrappers():
-    """{name: wrapper} of the five kernel wrappers, each with ``.launches``.
-    Looked up once, so that the counts set and read are those of the kernel
-    wrappers also while :func:`plain_path` has the modules' names point at
-    the plain versions."""
+    """{name: wrapper} of the seven kernel wrappers, each with
+    ``.launches``.  Looked up once, so that the counts set and read are
+    those of the kernel wrappers also while :func:`plain_path` has the
+    modules' names point at the plain versions."""
     from openscene_tpu_torch.sparse.edge_conv import (down_conv_bwd,
                                                       down_conv_fwd,
-                                                      up_conv_bwd)
+                                                      up_conv_bwd,
+                                                      up_conv_fwd)
+    from openscene_tpu_torch.sparse.pack import pack_pairs_t
     from openscene_tpu_torch.sparse.stencil_conv import (stencil_conv_bwd,
                                                          stencil_conv_fwd)
     return {"stencil_conv_fwd": stencil_conv_fwd,
             "down_conv_fwd": down_conv_fwd,
             "stencil_conv_bwd": stencil_conv_bwd,
-            "down_conv_bwd": down_conv_bwd, "up_conv_bwd": up_conv_bwd}
+            "down_conv_bwd": down_conv_bwd, "up_conv_bwd": up_conv_bwd,
+            "up_conv_fwd": up_conv_fwd, "pack_pairs_t": pack_pairs_t}
 
 
 def zero_counts():
@@ -479,6 +697,13 @@ def read_counts():
     return {name: w.launches for name, w in wrappers().items()}
 
 
+def expected(counts):
+    """Every wrapper's count: ``counts``, and 0 for the rest."""
+    out = dict.fromkeys(wrappers(), 0)
+    out.update(counts)
+    return out
+
+
 TRAIN_LAUNCHES = {"stencil_conv_fwd": STENCILS_PER_FORWARD,
                   "down_conv_fwd": DOWNS_PER_FORWARD,
                   "stencil_conv_bwd": STENCILS_PER_FORWARD,
@@ -487,49 +712,90 @@ TRAIN_LAUNCHES = {"stencil_conv_fwd": STENCILS_PER_FORWARD,
 
 
 def train_phase(trainer, batches, card):
-    """TRAIN_STEPS steps of the trainer's step on ``cuda``; returns the
-    launches counted.  ``batches`` yields DistillBatches (host assembly is
-    timed around ``next``)."""
+    """TRAIN_STEPS steps of the trainer on ``cuda`` through
+    ``trainer.train_step``, device geometry on: raw batches, geometry built
+    on the card.  Returns the launches counted.  ``batches`` yields
+    ``(RawDistillBatch, caps)`` (host loading and assembly are timed around
+    ``next``)."""
     import math
     import torch
-    total = dict.fromkeys(TRAIN_LAUNCHES, 0)
+    total = dict.fromkeys(wrappers(), 0)
     losses, voxels, t_host, t_dev = [], 0, 0.0, 0.0
+    overflows = trainer.overflows
     t_all = time.time()
     for i in range(TRAIN_STEPS):
         t0 = time.time()
         batch = next(batches)
         host = time.time() - t0
+        raw, caps = batch
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.time()
-        loss = float(trainer.step_fn(batch))
+        loss = float(trainer.train_step(batch))
         torch.cuda.synchronize()
         dev = time.time() - t0
         got = read_counts()
-        if got != TRAIN_LAUNCHES:
+        if got != expected(TRAIN_LAUNCHES):
             raise AssertionError(f"train step {i}: launches {got}, want "
-                                 f"{TRAIN_LAUNCHES}")
+                                 f"{expected(TRAIN_LAUNCHES)}")
         if not math.isfinite(loss):
             raise AssertionError(f"train step {i}: loss {loss}")
         for k in total:
             total[k] += got[k]
         losses.append(loss)
-        voxels += batch.num_voxels
+        voxels += int(raw.num)
         t_host += host
         t_dev += dev
-        print(f"train step {i}: loss {loss:.6f}, {batch.num_voxels} voxels "
-              f"(level-0 cap {batch.geo.levels[0].cap}), host load + "
-              f"assembly {host * 1e3:.1f} ms, device step (plans to device, "
-              f"forward, loss, backward, Adam) {dev * 1e3:.1f} ms", flush=True)
+        print(f"train step {i}: loss {loss:.6f}, {int(raw.num)} voxels "
+              f"(level caps {caps}), host load + raw assembly "
+              f"{host * 1e3:.1f} ms, device step (coordinates to the card, "
+              f"geometry, forward, loss, backward, Adam) {dev * 1e3:.1f} ms",
+              flush=True)
     dt = time.time() - t_all
+    if trainer.overflows != overflows:
+        raise AssertionError("device geometry overflowed during training")
     if not losses[2] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    print(f"train: {ARCH} {DIM}-d cosine bf16, batch of {TRAIN_BATCH} "
-          f"scenes, {TRAIN_STEPS} steps, {voxels} voxels in {dt:.3f}s -> "
-          f"{TRAIN_STEPS / dt:.4f} steps/s, {voxels / dt:.1f} voxels/s "
-          f"(host {t_host:.3f}s, device steps {t_dev:.3f}s; step 0 includes "
-          f"the allocator's warm-up) [{card}]", flush=True)
+    print(f"train: {ARCH} {DIM}-d cosine bf16, device geometry, batch of "
+          f"{TRAIN_BATCH} scenes, {TRAIN_STEPS} steps, {voxels} voxels in "
+          f"{dt:.3f}s -> {TRAIN_STEPS / dt:.4f} steps/s, {voxels / dt:.1f} "
+          f"voxels/s (host {t_host:.3f}s, device steps {t_dev:.3f}s; step 0 "
+          f"includes the allocator's warm-up), 0 overflows [{card}]",
+          flush=True)
     return total
+
+
+def host_batch_from_caps(raw, caps):
+    """The host-geometry DistillBatch of a raw batch at the raw batch's own
+    caps (``host_batch_from_raw`` re-buckets them)."""
+    from openscene_tpu_torch.data.batch import DistillBatch
+    from openscene_tpu_torch.sparse.geometry import (GeometryCaps,
+                                                     build_unet_geometry)
+    n = int(raw.num)
+    geo = build_unet_geometry(raw.coords[:n], caps=GeometryCaps(
+        cap0=caps[0], fixed=caps))
+    return DistillBatch(geo=geo, feats=raw.feats, feat_3d=raw.feat_3d,
+                        mask=raw.mask, labels=raw.labels, num_voxels=n)
+
+
+def assembly_times(trainer, card):
+    """Host ms to assemble one 2-scene batch (scenes already loaded): raw
+    (concatenate, sort, level counts, pad) against host geometry (the same
+    and the NumPy planner)."""
+    import numpy as np
+    from openscene_tpu_torch.data.batch import (assemble_distill_batch,
+                                                assemble_raw_distill_batch)
+    samples = [trainer.train_data.get(i) for i in range(TRAIN_BATCH)]
+    t0 = time.time()
+    assemble_raw_distill_batch(samples, DIM, rng=np.random.default_rng(0))
+    t_raw = time.time() - t0
+    t0 = time.time()
+    assemble_distill_batch(samples, DIM, rng=np.random.default_rng(0))
+    t_host = time.time() - t0
+    print(f"host assembly of one {TRAIN_BATCH}-scene batch: raw "
+          f"{t_raw * 1e3:.1f} ms, host geometry {t_host * 1e3:.1f} ms "
+          f"[{card}]", flush=True)
+    return t_raw * 1e3, t_host * 1e3
 
 
 def compare_train_step(trainer, batch):
@@ -581,7 +847,7 @@ def compare_train_step(trainer, batch):
 
     zero_counts()
     loss_k, grads_k, params_k = run(torch.bfloat16)
-    if read_counts() != TRAIN_LAUNCHES:
+    if read_counts() != expected(TRAIN_LAUNCHES):
         raise AssertionError(f"compared step: launches {read_counts()}")
     with plain_path():
         zero_counts()
@@ -655,6 +921,8 @@ def main():
     from openscene_tpu_torch.runtime.evaluate import (ZeroShotEvaluator,
                                                       load_model_for_eval,
                                                       make_eval_step)
+    from openscene_tpu_torch.scripts.dev_bench_ops import bench_ops
+    from openscene_tpu_torch.scripts.dev_pack_bench import bench_pack
     from openscene_tpu_torch.sparse import _build
     from openscene_tpu_torch.sparse.geometry import geometry_to_device
 
@@ -692,28 +960,49 @@ def main():
 
     trainer = DistillTrainer(train_config(d3, dfeat), allow_pseudo_text=True,
                              device=device)
+    if not trainer.device_geometry:
+        raise AssertionError("device_geometry 'auto' is off on cuda")
     batches = trainer._epoch_batches()
-    tbatch = next(batches)
-    tgeo = geometry_to_device(tbatch.geo, device)
-    print(f"train batch: {tbatch.num_voxels} voxels, level caps "
-          f"{[l.cap for l in tgeo.levels]}, valid rows "
-          f"{[l.num for l in tgeo.levels]}", flush=True)
+    raw, caps = next(batches)
+    # the NumPy builder on the raw batch's caps: the reference of the
+    # geometry built on the card and the backward kernels' geometry
+    t0 = time.time()
+    host_geo = host_batch_from_caps(raw, caps).geo
+    t_numpy = time.time() - t0
+    tgeo = geometry_to_device(host_geo, device)
+    print(f"train batch: {int(raw.num)} voxels, level caps {caps}, valid "
+          f"rows {[l.num for l in tgeo.levels]}", flush=True)
     cases.update(kernels_phase_bwd(tgeo))
+    geo_stats = geometry_phase(raw, caps, host_geo, t_numpy, card)
+    cases["up_conv_fwd"] = up_kernel_phase(tgeo)
     del tgeo
+    # kernel 7: its benchmark is its main path (the launches counted)
+    zero_counts()
+    pack_rows = bench_pack(iters=20)
+    main_launches = {"pack_pairs_t": read_counts()["pack_pairs_t"]}
+    cases["pack_pairs_t"] = [dict(r, shape=f"cap={r['shape'][0]} "
+                                  f"C={r['shape'][1]}", max_abs_err=0.0,
+                                  tol=0.0) for r in pack_rows]
     for name, shapes in cases.items():
         for c in shapes:
             print(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
                   f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, "
-                  f"bound {c['bound_ms']:.5f} ({c['bound_by']}), dense "
-                  f"{c['dense_bound_ms']:.5f} ({c['dense_bound_by']}), "
-                  f"max err {c['max_abs_err']:.3e}"
+                  f"bound {c['bound_ms']:.5f} ({c['bound_by']})"
+                  + (f", dense {c['dense_bound_ms']:.5f} "
+                     f"({c['dense_bound_by']})" if "dense_bound_ms" in c
+                     else "")
+                  + (", bit-equal" if name == "pack_pairs_t" else
+                     f", max err {c['max_abs_err']:.3e}")
+                  + (f", launch alone {c['launch_only_ms']:.4f}, grouping "
+                     f"alone {c['grouping_ms']:.4f}" if "grouping_ms" in c
+                     else "")
                   + (f", dW err {c['dw_max_abs_err']:.3e} of tol "
                      f"{c['dw_tol']:.3e}" if "dw_tol" in c else "")
                   + f" [{card}]", flush=True)
 
     # ---- 3. the serving path ----
     model = ev.model
-    launches = dict.fromkeys(TRAIN_LAUNCHES, 0)
+    launches = dict.fromkeys(wrappers(), 0)
     n_voxels = sum(len(s.coords) for s in samples)
     for mode in MODES:
         mev = ZeroShotEvaluator(eval_config(d3, dfeat, mode), model,
@@ -725,9 +1014,8 @@ def main():
         torch.cuda.synchronize()
         dt = time.time() - t0
         got = read_counts()
-        want = dict.fromkeys(TRAIN_LAUNCHES, 0)
-        want.update(stencil_conv_fwd=STENCILS_PER_FORWARD * N_SCENES,
-                    down_conv_fwd=DOWNS_PER_FORWARD * N_SCENES)
+        want = expected(dict(stencil_conv_fwd=STENCILS_PER_FORWARD * N_SCENES,
+                             down_conv_fwd=DOWNS_PER_FORWARD * N_SCENES))
         if got != want:
             raise AssertionError(f"{mode}: launches {got}, want {want}")
         if not np.isfinite(res["miou"]):
@@ -762,32 +1050,52 @@ def main():
         raise AssertionError("kernel path and plain path disagree")
     del ev, model, logits_k, logits_p
 
-    # ---- 4. the training path ----
-    del tbatch
+    # ---- 4. the training path, geometry built on the card ----
+    del raw, host_geo
+    t_raw_asm, t_host_asm = assembly_times(trainer, card)
     train_launches = train_phase(trainer, batches, card)
     for k in launches:
         launches[k] += train_launches[k]
     pbatch = next(batches)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    trainer.step_fn(pbatch)
-    torch.cuda.synchronize()
-    t_step = time.time() - t0
-    busy = profile_device(lambda: trainer.step_fn(pbatch), "train")
-    if busy:
-        print(f"profiler[train]: device busy {busy:.3f} ms in the profiled "
-              f"train step (unprofiled step {t_step * 1e3:.1f} ms, "
-              f"{pbatch.num_voxels} voxels) [{card}]", flush=True)
-    compare_train_step(trainer, pbatch)
+    praw, pcaps = pbatch
+    host_batch = host_batch_from_caps(praw, pcaps)
+    compare_raw_host(trainer, praw, pcaps, host_batch)
+    for what, fn in (("train raw", lambda: trainer.train_step(pbatch)),
+                     ("train host", lambda: trainer.step_fn(host_batch))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        t_step = time.time() - t0
+        busy = profile_device(fn, what)
+        if busy:
+            print(f"profiler[{what}]: device busy {busy:.3f} ms in the "
+                  f"profiled train step (unprofiled step "
+                  f"{t_step * 1e3:.1f} ms, {int(praw.num)} voxels) [{card}]",
+                  flush=True)
+    compare_train_step(trainer, host_batch)
 
-    # ---- 5. report ----
+    # ---- 5. the per-op benchmark on the train batch: kernel 5's path ----
+    zero_counts()
+    t0 = time.time()
+    bench = bench_ops(praw.coords, int(praw.num), n_scenes=TRAIN_BATCH,
+                      iters=BENCH_ITERS)
+    main_launches["up_conv_fwd"] = read_counts()["up_conv_fwd"]
+    for row in bench:
+        print(f"bench_ops: {json.dumps(row)} [{card}]", flush=True)
+    print(f"bench_ops: {len(bench)} rows in {time.time() - t0:.1f}s",
+          flush=True)
+    for k, n in main_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was not launched on its main path")
+        launches[k] += n
+
+    # ---- 6. report ----
     kernels = []
     for name, shapes in cases.items():
         main_shape = shapes[0]
-        fwd = name.endswith("_fwd")
         entry = {
-            "name": name, "route": "cuda",
-            "source": FWD_SOURCE if fwd else BWD_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_per_train_step": train_launches[name] / TRAIN_STEPS,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
@@ -796,12 +1104,18 @@ def main():
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
             "shapes": shapes}
-        if fwd:
+        if name in ("stencil_conv_fwd", "down_conv_fwd"):
             entry["launches_per_forward"] = (
                 launches[name] - train_launches[name]) / forwards
+        elif name in main_launches:
+            entry["main_path"] = ("scripts/dev_bench_ops.py:bench_ops"
+                                  if name == "up_conv_fwd" else
+                                  "scripts/dev_pack_bench.py:bench_pack")
         else:
             entry["also_launches"] = FWD_SOURCE + " (dx)"
         kernels.append(entry)
+    print(f"geometry: {json.dumps(geo_stats)}; host assembly ms raw "
+          f"{t_raw_asm:.1f}, host geometry {t_host_asm:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

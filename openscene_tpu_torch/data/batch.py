@@ -14,7 +14,9 @@ The train-time per-batch random global coordinate shift
 (``coords[:,1:4] += rand(3)*100``, run/distill.py:315) is applied here.
 
 The arrays are NumPy; :func:`openscene_tpu_torch.sparse.geometry_to_device`
-moves the geometry to a device.
+moves the geometry to a device.  :func:`assemble_raw_distill_batch` builds no
+geometry at all: the train step builds it on the device
+(``sparse/geometry_device.py``) from the padded level-0 coordinates.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 
 from ..sparse.geometry import (GeometryCaps, _bucket, _pad_level,
-                               build_unet_geometry)
+                               build_unet_geometry, level_counts)
 from ..sparse.types import UNetGeometry
 from .loaders import SceneSample
 
@@ -37,6 +39,18 @@ class DistillBatch(NamedTuple):
     mask: np.ndarray       # (cap0,) float32 1.0 where a fused target exists
     labels: np.ndarray     # (cap0,) int32 voxel labels (for debug/val viz)
     num_voxels: int
+
+
+class RawDistillBatch(NamedTuple):
+    """Train batch without geometry: the device builds the plans from
+    ``coords`` inside the train step, so the host ships the level-0 buffers
+    only."""
+    coords: np.ndarray     # (cap0, 4) int32 lex-sorted, sentinel-padded
+    num: np.ndarray        # () int32 valid voxels
+    feats: np.ndarray      # (cap0, 3) float32
+    feat_3d: np.ndarray    # (cap0, D) float16
+    mask: np.ndarray       # (cap0,) float32
+    labels: np.ndarray     # (cap0,) int32
 
 
 class EvalBatch(NamedTuple):
@@ -97,8 +111,15 @@ def assemble_distill_batch(samples: Sequence[SceneSample], dim: int,
     coords, perm, inv, offs = _concat_sort(samples, _random_shift(rng, shift))
     n = len(coords)
     geo = build_unet_geometry(coords, caps=caps or GeometryCaps.for_count(n))
-    cap0 = geo.levels[0].cap
+    feats, feat_3d, mask, labels = _train_buffers(
+        samples, dim, geo.levels[0].cap, n, perm, inv, offs)
+    return DistillBatch(geo=geo, feats=feats, feat_3d=feat_3d, mask=mask,
+                        labels=labels, num_voxels=n)
 
+
+def _train_buffers(samples, dim, cap0, n, perm, inv, offs):
+    """(feats, feat_3d, mask, labels) of a train batch at its voxel rows:
+    fp16 targets placed where a fused feature exists."""
     feats = np.zeros((cap0, 3), dtype=np.float32)
     feat_3d = np.zeros((cap0, dim), dtype=np.float16)  # fp16 end to end
     mask = np.zeros(cap0, dtype=np.float32)
@@ -109,8 +130,35 @@ def assemble_distill_batch(samples: Sequence[SceneSample], dim: int,
         rows = inv[offs[b] + np.flatnonzero(s.feat_mask)]
         feat_3d[rows] = s.feat_3d
         mask[rows] = 1.0
-    return DistillBatch(geo=geo, feats=feats, feat_3d=feat_3d, mask=mask,
-                        labels=labels, num_voxels=n)
+    return feats, feat_3d, mask, labels
+
+
+def assemble_raw_distill_batch(samples: Sequence[SceneSample], dim: int,
+                               caps: Optional[GeometryCaps] = None,
+                               rng: Optional[np.random.Generator] = None,
+                               shift: bool = True):
+    """Concatenate, sort, pad and place the targets; no kernel maps.
+    Returns ``(RawDistillBatch, caps)``.
+
+    ``caps`` is the running schedule (``GeometryCaps`` with ``fixed``
+    per-level caps, or None at the first batch).  This batch's exact level
+    counts (five ``np.unique`` passes) are merged into it and only the
+    levels whose count no longer fits grow, to the bucket of that count:
+    caps only ever grow, so the device builder never outgrows a level cap
+    and a few schedules serve a whole run."""
+    coords, perm, inv, offs = _concat_sort(samples, _random_shift(rng, shift))
+    n = len(coords)
+    counts = level_counts(coords)
+    prev = caps.fixed if caps is not None else (0,) * len(counts)
+    fixed = tuple(p if c < p else max(p, _bucket(c))
+                  for p, c in zip(prev, counts))
+    caps = GeometryCaps(cap0=fixed[0], fixed=fixed)
+    level0 = _pad_level(coords, fixed[0])
+    feats, feat_3d, mask, labels = _train_buffers(
+        samples, dim, fixed[0], n, perm, inv, offs)
+    return RawDistillBatch(coords=level0.coords, num=np.int32(n),
+                           feats=feats, feat_3d=feat_3d, mask=mask,
+                           labels=labels), caps
 
 
 def assemble_eval_batch(samples: Sequence[SceneSample], dim: int,

@@ -220,7 +220,8 @@ class MinkUNet(nn.Module):
         (1,1,1) feature (point_loader.py:166-169).  Then the k=5 stem reduces
         exactly to ``occupancy @ sum_cin(W)`` — one GEMM instead of 125
         gathers of 3-channel rows.  Only valid when x rows are (1,..,1) at
-        valid rows, 0 at padded.
+        valid rows, 0 at padded.  The occupancy is ``geo.stem_occ`` where
+        the device builder made it, else ``geo.stem.fwd < num``.
 
         Returns (cap0, out_ch) fp32, or the (cap0, C) pre-head activations
         with ``return_prehead``.
@@ -230,7 +231,10 @@ class MinkUNet(nn.Module):
         nums = [int(l.num) for l in geo.levels]
 
         if constant_input:
-            occ = (geo.stem.fwd < nums[0]).to(x.dtype)  # (K, cap0)
+            # (K, cap0): built directly by the device builder, else derived
+            # from the stem plan
+            occ = (geo.stem_occ if geo.stem_occ is not None
+                   else geo.stem.fwd < nums[0]).to(x.dtype)
             wsum = self.conv0.sum(dim=1).to(x.dtype)     # (K, Cout)
             out = matmul_f32(occ.t(), wsum).to(x.dtype)
         else:

@@ -16,11 +16,17 @@ Parity details carried over:
 * val-every-epoch mIoU against CLIP text embeddings gates the best
   checkpoint (run/distill.py:219-242).
 
-Voxelization, batch assembly and geometry plans run on the host (ahead of
-the device in ``workers`` threads); forward, loss, backward and the Adam
-update run on the device, the sparse convs and their gradients through the
-hand-written CUDA kernels.  Multi-device training, geometry built on the
-device and the epoch-end qualitative export are not ported yet (ROADMAP).
+Voxelization and batch assembly run on the host (ahead of the device in
+``workers`` threads); forward, loss, backward and the Adam update run on the
+device, the sparse convs and their gradients through the hand-written CUDA
+kernels.  With ``device_geometry`` on (``auto``: on for a CUDA trainer) the
+host ships only the padded level-0 coordinates (:class:`RawDistillBatch`)
+and the step builds every kernel map on the device
+(``sparse/geometry_device.py``, ``sparse/grid.py``); a batch whose geometry
+overflows its caps or the occupancy grid is built again on the host and
+trained through the host-geometry step, never through the overflowed plans.
+Multi-device training and the epoch-end qualitative export are not ported
+yet (ROADMAP).
 
 Run: ``python -m openscene_tpu_torch.runtime.distill --config <yaml>
 [--device cuda|cpu] [key value]*``
@@ -30,23 +36,28 @@ from __future__ import annotations
 
 import os
 import sys
+import threading
 import time
 from os.path import isfile, join
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import metrics
 from ..config import Config, dataset_name_from_root, load_config
-from ..data.batch import (DistillBatch, SegBatch, assemble_distill_batch,
+from ..data.batch import (DistillBatch, RawDistillBatch, SegBatch,
+                          assemble_distill_batch, assemble_raw_distill_batch,
                           assemble_seg_batch)
 from ..data.loaders import FusedFeatureLoader, Point3DLoader
 from ..device import resolve_device
 from ..labels import labelset_and_palette
 from ..models.disnet import output_dim
 from ..models.sparse_unet import MinkUNet
-from ..sparse.geometry import geometry_to_device
+from ..sparse.geometry import (GeometryCaps, build_unet_geometry,
+                               geometry_to_device)
+from ..sparse.geometry_device import build_geometry_parts, with_host_counts
+from ..sparse.types import UNetGeometry
 from ..sparse.ops import matmul_f32
 from ..text import extract_text_features
 from ..utils.train_utils import (AverageMeter, ScalarWriter, get_logger,
@@ -128,7 +139,8 @@ class TrainStep:
     """``step(batch) -> loss``: one update on a host-geometry
     :class:`DistillBatch`.  ``it`` counts the updates taken (the schedule's
     argument); the loss comes back as a 0-d device tensor, so the caller
-    decides when to wait for the device."""
+    decides when to wait for the device.  :meth:`run` takes the geometry
+    already on the device (the raw step's way in)."""
 
     def __init__(self, cfg: Config, model: MinkUNet,
                  optimizer: torch.optim.Optimizer,
@@ -139,27 +151,29 @@ class TrainStep:
         self.schedule, self.device, self.it = schedule, device, it
         self.cdtype = compute_dtype(cfg)
 
-    def loss(self, batch: DistillBatch) -> torch.Tensor:
+    def loss_on(self, geo: UNetGeometry, feats, feat_3d, mask
+                ) -> torch.Tensor:
+        """The loss of one batch whose geometry is on the device."""
         cfg, dev = self.cfg, self.device
-        geo = geometry_to_device(batch.geo, dev)
-        x = torch.as_tensor(batch.feats, device=dev).to(self.cdtype)
+        x = torch.as_tensor(feats, device=dev).to(self.cdtype)
         # targets ship fp16 from the host (storage dtype); compute in cdtype
-        target = torch.as_tensor(batch.feat_3d, device=dev).to(self.cdtype)
-        mask = torch.as_tensor(batch.mask, device=dev)
+        target = torch.as_tensor(feat_3d, device=dev).to(self.cdtype)
+        mask = torch.as_tensor(mask, device=dev)
         const_in = not cfg.input_color
         if cfg.loss_type == "cosine" and cfg.memory_efficient_loss:
-            feats = self.model(x, geo, constant_input=const_in,
-                               return_prehead=True)
-            return cosine_head_loss(feats, self.model.final, target, mask)
+            out = self.model(x, geo, constant_input=const_in,
+                             return_prehead=True)
+            return cosine_head_loss(out, self.model.final, target, mask)
         out = self.model(x, geo, constant_input=const_in)
         if cfg.loss_type == "cosine":
             return cosine_distill_loss(out, target, mask)
         return l1_distill_loss(out, target, mask)
 
-    def __call__(self, batch: DistillBatch) -> torch.Tensor:
+    def run(self, geo: UNetGeometry, feats, feat_3d, mask) -> torch.Tensor:
+        """One update on a batch whose geometry is on the device."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(batch)
+        loss = self.loss_on(geo, feats, feat_3d, mask)
         loss.backward()
         lr = self.schedule(self.it)
         for group in self.optimizer.param_groups:
@@ -167,6 +181,44 @@ class TrainStep:
         self.optimizer.step()
         self.it += 1
         return loss.detach()
+
+    def __call__(self, batch: DistillBatch) -> torch.Tensor:
+        return self.run(geometry_to_device(batch.geo, self.device),
+                        batch.feats, batch.feat_3d, batch.mask)
+
+
+class RawTrainStep:
+    """``step(raw) -> (loss, overflow)``: one update on a
+    :class:`RawDistillBatch` whose geometry is built on the device for the
+    level caps ``caps``, by the occupancy grid when ``n_scenes`` is given
+    (``grid_dims0``: its level-0 extents) and by the search otherwise.
+
+    The overflow flag and the level counts are read in one wait, right
+    after the build and before the forward.  On overflow the step returns
+    ``(None, True)`` without touching the model, the optimizer or ``it``:
+    the caller builds the batch on the host (:func:`host_batch_from_raw`)
+    and runs the host step."""
+
+    def __init__(self, step: TrainStep, caps: Sequence[int],
+                 n_scenes: Optional[int] = None,
+                 grid_dims0: Optional[Tuple[int, int, int]] = None):
+        self.step, self.caps = step, tuple(int(c) for c in caps)
+        self.n_scenes, self.grid_dims0 = n_scenes, grid_dims0
+
+    def geometry(self, raw: RawDistillBatch):
+        """(geometry on the device with host level counts, overflow)."""
+        dev = self.step.device
+        geo, overflow = build_geometry_parts(
+            torch.as_tensor(raw.coords, device=dev), int(raw.num), self.caps,
+            stem_occupancy=not self.step.cfg.input_color,
+            n_scenes=self.n_scenes, grid_dims0=self.grid_dims0)
+        return with_host_counts(geo, overflow)
+
+    def __call__(self, raw: RawDistillBatch):
+        geo, overflow = self.geometry(raw)
+        if overflow:
+            return None, True
+        return self.step.run(geo, raw.feats, raw.feat_3d, raw.mask), False
 
 
 def make_train_step(cfg: Config, model: MinkUNet,
@@ -217,6 +269,27 @@ def make_val_step(cfg: Config):
     return step
 
 
+def host_batch_from_raw(raw: RawDistillBatch) -> DistillBatch:
+    """A host-geometry :class:`DistillBatch` from a raw one (the overflow
+    fallback): the NumPy builder with caps bucketed from this batch's own
+    voxel count, the level-0 buffers cut or zero-padded to its cap."""
+    n = int(raw.num)
+    geo = build_unet_geometry(np.asarray(raw.coords[:n]),
+                              caps=GeometryCaps.for_count(n))
+    cap0 = geo.levels[0].cap
+
+    def fit(a, fill=0.0):
+        a = np.asarray(a)
+        if a.shape[0] >= cap0:  # rows >= n are padding
+            return a[:cap0]
+        width = [(0, cap0 - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
+        return np.pad(a, width, constant_values=fill)
+
+    return DistillBatch(geo=geo, feats=fit(raw.feats),
+                        feat_3d=fit(raw.feat_3d), mask=fit(raw.mask),
+                        labels=fit(raw.labels, 255), num_voxels=n)
+
+
 class DistillTrainer:
     def __init__(self, cfg: Config, allow_pseudo_text: bool = False,
                  device=None):
@@ -224,12 +297,21 @@ class DistillTrainer:
             raise NotImplementedError(
                 "multi-GPU training (data_parallel/model_parallel > 1) is "
                 "not ported yet (ROADMAP: multi-GPU eval and training)")
-        if str(cfg.device_geometry).lower() in ("on", "true", "1"):
-            raise NotImplementedError(
-                "device_geometry 'on' is not ported yet (ROADMAP: geometry "
-                "on the GPU); 'auto' builds geometry on the host")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # geometry built on the device inside the step: "auto" is on for a
+        # CUDA trainer, off on the CPU; "on" also works on the CPU
+        dg = str(cfg.device_geometry).lower()
+        self.device_geometry = (self.device.type == "cuda" if dg == "auto"
+                                else dg in ("on", "true", "1"))
+        self._train_caps: Optional[GeometryCaps] = None
+        self._caps_lock = threading.Lock()
+        self._dg_steps: Dict[Tuple, RawTrainStep] = {}
+        # after grid_overflow_limit overflows in a row the occupancy-grid
+        # prober is dropped (the search path has no grid to outgrow)
+        self._grid_enabled = True
+        self._overflow_streak = 0
+        self.overflows = 0  # batches built again on the host
         self.dim = output_dim(cfg.feature_2d_extractor)
         gen = torch.Generator().manual_seed(cfg.manual_seed)
         self.model = MinkUNet(3, self.dim, cfg.arch_3d,
@@ -283,16 +365,36 @@ class DistillTrainer:
     def global_step(self) -> int:
         return self.step_fn.it
 
+    def _raw_step(self, caps: Tuple[int, ...]) -> RawTrainStep:
+        """The device-geometry step of one cap schedule and grid state."""
+        key = (caps, self._grid_enabled)
+        if key not in self._dg_steps:
+            self._dg_steps[key] = RawTrainStep(
+                self.step_fn, caps,
+                n_scenes=(max(self.cfg.batch_size, 1) if self._grid_enabled
+                          else None),
+                grid_dims0=tuple(self.cfg.grid_dims0) or None)
+        return self._dg_steps[key]
+
     def _epoch_batches(self):
         """Batches built ``workers`` threads ahead of the device step
-        (replaces the reference's DataLoader worker pool)."""
+        (replaces the reference's DataLoader worker pool): DistillBatches,
+        or ``(RawDistillBatch, caps)`` with device geometry."""
         order = self.rng.permutation(len(self.train_data))
         bs = max(self.cfg.batch_size, 1)
 
         def build(i):
             idxs = order[i * bs:(i + 1) * bs]
             samples = [self.train_data.get(j) for j in idxs]
-            return assemble_distill_batch(samples, self.dim, rng=self.rng)
+            if not self.device_geometry:
+                return assemble_distill_batch(samples, self.dim, rng=self.rng)
+            with self._caps_lock:
+                caps = self._train_caps
+            batch, caps = assemble_raw_distill_batch(samples, self.dim,
+                                                     caps=caps, rng=self.rng)
+            with self._caps_lock:
+                self._train_caps = caps
+            return batch, caps.fixed  # the caps of THIS batch's shapes
 
         if self.cfg.workers <= 1:
             for i in range(self.batches_per_epoch):
@@ -302,6 +404,32 @@ class DistillTrainer:
             yield from Prefetcher(build, range(self.batches_per_epoch),
                                   workers=self.cfg.workers)
 
+    def train_step(self, batch) -> torch.Tensor:
+        """One update on a batch of :meth:`_epoch_batches`; returns the loss
+        as a 0-d device tensor.  A raw batch whose device geometry
+        overflows is built on the host and trained through the host step."""
+        if isinstance(batch, DistillBatch):
+            return self.step_fn(batch)
+        raw, caps = batch
+        loss, overflow = self._raw_step(caps)(raw)
+        if not overflow:
+            self._overflow_streak = 0
+            return loss
+        log.warning("device geometry overflowed (caps %s); building the "
+                    "batch on the host", caps)
+        self.overflows += 1
+        self._overflow_streak += 1
+        limit = self.cfg.grid_overflow_limit
+        if (limit > 0 and self._grid_enabled
+                and self._overflow_streak >= limit):
+            log.warning("%d overflows in a row: dropping the occupancy-grid "
+                        "prober (do the scenes exceed grid_dims0=%s?)",
+                        self._overflow_streak,
+                        tuple(self.cfg.grid_dims0) or "default")
+            self._grid_enabled = False
+            self._overflow_streak = 0
+        return self.step_fn(host_batch_from_raw(raw))
+
     def train_epoch(self, epoch: int, writer: Optional[ScalarWriter] = None):
         loss_meter = AverageMeter()
         data_meter = AverageMeter()
@@ -309,7 +437,7 @@ class DistillTrainer:
         end = time.time()
         for i, batch in enumerate(self._epoch_batches()):
             data_meter.update(time.time() - end)
-            loss = float(self.step_fn(batch))  # waits for the device
+            loss = float(self.train_step(batch))  # waits for the device
             loss_meter.update(loss, self.cfg.batch_size)
             batch_meter.update(time.time() - end)
             end = time.time()

@@ -521,7 +521,7 @@ def test_main_runs_one_epoch_on_cpu(synth, tmp_path, head32):
 @pytest.mark.parametrize("kw,match", [
     (dict(data_parallel=2), "multi-GPU"),
     (dict(model_parallel=2), "multi-GPU"),
-    (dict(device_geometry="on"), "device_geometry"),
+    (dict(device_geometry="on", data_parallel=2), "multi-GPU"),
 ])
 def test_trainer_refuses_what_is_not_ported(kw, match):
     with pytest.raises(NotImplementedError, match=match):

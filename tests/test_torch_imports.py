@@ -60,10 +60,13 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = proc.stdout.split()  # every module was imported
-    assert len(names) >= 26
+    assert len(names) >= 33
     for mod in ("runtime.distill", "runtime.evaluate", "data.batch",
                 "utils.train_utils", "sparse.edge_conv",
-                "sparse.stencil_conv", "sparse.ops", "convert"):
+                "sparse.stencil_conv", "sparse.ops", "convert",
+                "sparse.geometry_device", "sparse.grid", "sparse.pack",
+                "scripts.dev_bench_ops", "scripts.dev_pack_bench",
+                "scripts.timing"):
         assert "openscene_tpu_torch." + mod in names
 
 
@@ -159,7 +162,8 @@ def test_wgrad_split_covers_the_rows():
 
 
 def test_kernel_build_is_content_hashed(monkeypatch):
-    assert _build.sources() == ["gather_gemm_bwd", "gather_gemm_fwd"]
+    assert _build.sources() == ["gather_gemm_bwd", "gather_gemm_fwd",
+                                "pack_pairs_t", "up_conv_fwd"]
     path = _build.library_path("gather_gemm_fwd")
     assert path.startswith(_build.BUILD_DIR)
     assert path == _build.library_path("gather_gemm_fwd")
