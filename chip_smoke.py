@@ -8,18 +8,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    one ``nvcc`` each, all started together) into ``build/kernels``;
 2. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (forward kernels on scene 0's geometry, backward
-   kernels on the first train batch's; tolerance: one bf16 ulp of the output
-   scale, ``2**-7 * max|plain|``, for activations and input gradients, with
-   padded rows exactly zero; ``1e-4`` of the scale for the fp32 weight
-   gradients, which differ only in the order of their fp32 sums) and times
-   the kernel, the plain version and a library yardstick (``index_select``
-   + ``torch.matmul``, the im2col formulation, which the port never calls);
+   kernels on the first train batch's, the stencil kernels with each
+   level's skip plan; tolerance: one bf16 ulp of the output scale,
+   ``2**-7 * max|plain|``, for activations and input gradients, with padded
+   rows exactly zero; ``1e-4`` of the scale for the fp32 weight gradients,
+   which differ only in the order of their fp32 sums; every kernel
+   bit-identical across two launches on the same inputs) and times the
+   kernel, the plain version and a library yardstick (``index_select`` +
+   ``torch.matmul``, the im2col formulation, which the port never calls):
+   device times with the host's enqueue hidden behind a sleep kernel, and
+   the kernel's and the library call's host-inclusive times of back-to-back
+   calls beside them;
 3. builds the first train batch's geometry on the card from its level-0
    coordinates, with the occupancy grid and with the search path (stem
    occupancy on), and requires every array to equal the NumPy builder's for
-   the same caps bit for bit, with no overflow; prints the build times, the
+   the same caps bit for bit, and every level's skip plan to equal the one
+   built for the host plans, with no overflow; prints the build times, the
    NumPy planner's time and the bytes a raw and a host-geometry batch copy
-   to the card;
+   to the card; then prints the skip plans' shares (pairs with a neighbour,
+   (tile, offset) steps the forward runs) and build time;
 4. holds kernel 5 (the up conv over the children, ``up_conv_fwd``) against
    its plain version at the four edges of that batch (one bf16 ulp, padded
    rows exactly 0) beside the model's dense route, and drives kernel 7 (the
@@ -43,7 +50,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    down-conv and 4 up-conv backward launches per step, and no overflow.
    Losses must be finite and the third below the first.  One step through
    device geometry and one through host geometry on the same batch, caps
-   and starting state must give the same loss and gradients exactly.  Then
+   and starting state must give the same loss and gradients exactly.  Each
+   is profiled once, and the stencil sources' device ms are printed beside
+   the previous design's.  Then
    one more step runs from the same model and optimizer state through the
    kernels, through the plain versions, and through the plain versions in
    fp32: the loss and the updated parameters of the first two must agree,
@@ -89,6 +98,10 @@ PARAM_TOL_RESOLVED = 0.5    # updated parameters, kernels against plain, as
 PARAM_TOL_MEAN = 0.02       # fractions of the step's learning rate
 PARAM_TOL_ALL = 1.0
 BENCH_ITERS = 3             # per-op benchmark on the train batch
+# PERF.md §5: device ms of the two stencil kernels (gather_gemm_fwd,
+# gather_wgrad) in a profiled raw train step of the dense split-row design
+# that preceded the skip plans, on an NVIDIA H100 80GB HBM3 at 700 W
+DENSE_DESIGN_TRAIN_CONV_MS = (53.8, 36.3)
 REPLACES = {
     "stencil_conv_fwd": "openscene_tpu/sparse/pallas_conv.py:371",
     "stencil_conv_bwd": "openscene_tpu/sparse/pallas_conv.py:447",
@@ -118,7 +131,18 @@ def card_line():
     return out.splitlines()[0]
 
 
+def device_ms(fn, iters=20, warmup=3):
+    """Device milliseconds per call of ``fn`` with the host's enqueue hidden
+    behind a sleep kernel (``scripts/timing.py:device_time_ms``): the
+    kernels', plain versions' and library calls' times."""
+    from openscene_tpu_torch.scripts.timing import device_time_ms
+    return device_time_ms(fn, iters, warmup)
+
+
 def cuda_time_ms(fn, iters=20, warmup=3):
+    """CUDA-event milliseconds per call of back-to-back calls of ``fn``:
+    where the host enqueues more slowly than the device runs, the host's
+    time (a wrapper's "host_ms", launch-bound builds)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -179,6 +203,7 @@ def kernel_case(name, wrapper, plain, x, w, idx, n_in, n_out):
     K, cin, cout = w.shape
     out = wrapper(x, w, idx)
     ref = plain(x, w, idx)
+    again = wrapper(x, w, idx)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = BF16_ULP * ref.float().abs().max().item()
@@ -187,6 +212,8 @@ def kernel_case(name, wrapper, plain, x, w, idx, n_in, n_out):
                              f"{err} > {tol}")
     if out[n_out:].any():
         raise AssertionError(f"{name}: padded output rows are not zero")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name} {cin}->{cout}: two launches differ")
     wb = w.to(torch.bfloat16)
     rows = idx.shape[1]
 
@@ -204,10 +231,12 @@ def kernel_case(name, wrapper, plain, x, w, idx, n_in, n_out):
     return {"shape": f"K={K} {cin}->{cout} rows_in={x.shape[0]} "
                      f"rows_out={rows} (valid {n_in}->{n_out}, "
                      f"{pairs} neighbour pairs)",
-            "max_abs_err": err, "tol": tol,
-            "ms": cuda_time_ms(lambda: wrapper(x, w, idx)),
-            "plain_ms": cuda_time_ms(lambda: plain(x, w, idx), iters=5),
-            "library_ms": cuda_time_ms(im2col, iters=5),
+            "max_abs_err": err, "tol": tol, "deterministic": True,
+            "ms": device_ms(lambda: wrapper(x, w, idx)),
+            "host_ms": cuda_time_ms(lambda: wrapper(x, w, idx)),
+            "plain_ms": device_ms(lambda: plain(x, w, idx), iters=5),
+            "library_ms": device_ms(im2col, iters=5),
+            "library_host_ms": cuda_time_ms(im2col, iters=5),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "dense_bound_ms": dense_ms, "dense_bound_by": dense_by}
 
@@ -234,9 +263,13 @@ def kernels_phase(geo):
     stencil = []
     for level, cin, cout in ((0, 128, 96), (0, 96, 96), (4, 256, 256)):
         n = geo.levels[level].num
+        skip = geo.self3[level].skip
+        if skip is None:
+            raise AssertionError(f"level {level}: the plan has no skip plan")
         stencil.append(kernel_case(
-            "stencil_conv_fwd", stencil_conv_fwd, stencil_conv_plain,
-            acts(level, cin), weights(27, cin, cout),
+            "stencil_conv_fwd",
+            functools.partial(stencil_conv_fwd, skip=skip),
+            stencil_conv_plain, acts(level, cin), weights(27, cin, cout),
             geo.self3[level].fwd, n, n))
     # the k=5 stem on colour input (off the main path, whose input is the
     # constant feature): 3 channels zero-padded to 8, K = 125
@@ -272,7 +305,10 @@ def bwd_case(name, kernel, plain, library, n_dx, shape, bounds):
     import torch
     dx, dw = kernel()
     dx_p, dw_p = plain()
+    dx2, dw2 = kernel()
     torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"{name} {shape}: two launches differ")
     err_x = (dx.float() - dx_p.float()).abs().max().item()
     tol_x = BF16_ULP * dx_p.float().abs().max().item()
     err_w = (dw - dw_p).abs().max().item()
@@ -287,10 +323,12 @@ def bwd_case(name, kernel, plain, library, n_dx, shape, bounds):
         raise AssertionError(f"{name}: padded dx rows are not zero")
     (b_ms, b_by), (d_ms, d_by) = bounds
     return {"shape": shape, "max_abs_err": err_x, "tol": tol_x,
-            "dw_max_abs_err": err_w, "dw_tol": tol_w,
-            "ms": cuda_time_ms(kernel),
-            "plain_ms": cuda_time_ms(plain, iters=5),
-            "library_ms": cuda_time_ms(library, iters=5),
+            "dw_max_abs_err": err_w, "dw_tol": tol_w, "deterministic": True,
+            "ms": device_ms(kernel),
+            "host_ms": cuda_time_ms(kernel),
+            "plain_ms": device_ms(plain, iters=5),
+            "library_ms": device_ms(library, iters=5),
+            "library_host_ms": cuda_time_ms(library, iters=5),
             "bound_ms": b_ms, "bound_by": b_by,
             "dense_bound_ms": d_ms, "dense_bound_by": d_by}
 
@@ -338,7 +376,7 @@ def kernels_phase_bwd(geo):
         stencil.append(bwd_case(
             "stencil_conv_bwd",
             lambda x=x, w=w, g=g, p=plan: stencil_conv_bwd(
-                x, w, g, p.fwd, p.flip_perm),
+                x, w, g, p.fwd, p.flip_perm, p.skip),
             lambda x=x, w=w, g=g, p=plan: stencil_conv_bwd_plain(
                 x, w, g, p.fwd, p.flip_perm),
             library, n,
@@ -397,6 +435,42 @@ def kernels_phase_bwd(geo):
             "down_conv_bwd": down}
 
 
+def skip_phase(geo, card):
+    """The skip plans of the train batch's levels: build time on the card,
+    the share of (row, offset) pairs that hold a neighbour and the share of
+    (tile, offset) steps the forward kernel runs at L0 128->96's row tile."""
+    from openscene_tpu_torch.sparse import stencil_conv as sc
+
+    def build_all():
+        return [sc.build_conv_skip(p.fwd, lv.num)
+                for p, lv in zip(geo.self3, geo.levels)]
+    out = {"build_ms": cuda_time_ms(build_all, iters=5), "levels": []}
+    for lvl, skip in enumerate(build_all()):
+        n, cap = geo.levels[lvl].num, geo.levels[lvl].cap
+        pairs = int(skip.pair_count.sum().item())
+        tm = skip.tile_mask.cpu().tolist()
+        bm = sc.fwd_tiles(cap, 27, 128, 96, True)[0]
+        per = bm // sc.TILE_ROWS
+        steps = 0
+        for t in range(0, len(tm), per):
+            m = 0
+            for v in tm[t:t + per]:
+                m |= v
+            steps += bin(m).count("1")
+        row = {"level": lvl, "pair_share": pairs / (27 * n),
+               "pairs_per_row": pairs / n,
+               "active_tile_offset_share": steps / (-(-cap // bm) * 27),
+               "tile_rows": bm}
+        out["levels"].append(row)
+        print(f"skip plan L{lvl}: pairs {row['pair_share']:.4f} of 27*num "
+              f"({row['pairs_per_row']:.3f} per row), active (tile, offset) "
+              f"steps {row['active_tile_offset_share']:.4f} at {bm}-row "
+              f"tiles", flush=True)
+    print(f"skip plan build ms (5 levels, CUDA events): "
+          f"{out['build_ms']:.4f} [{card}]", flush=True)
+    return out
+
+
 def geo_arrays(geo):
     """{name: tensor} of every array of a geometry (levels, plans, edges,
     stem occupancy), for a bit-for-bit comparison."""
@@ -414,9 +488,11 @@ def geo_arrays(geo):
     return out
 
 
-def geometry_phase(raw, caps, host_geo, t_numpy, card):
+def geometry_phase(raw, caps, host_geo, t_numpy, card, host_dev):
     """The raw batch's geometry built on the card, grid and search paths,
-    stem occupancy on, against the NumPy builder's for the same caps."""
+    stem occupancy on, against the NumPy builder's for the same caps; and
+    each level's skip plan against the one ``geometry_to_device`` built on
+    the card for the NumPy plans (``host_dev``)."""
     import numpy as np
     import torch
     from openscene_tpu_torch.sparse.geometry_device import (
@@ -450,6 +526,11 @@ def geometry_phase(raw, caps, host_geo, t_numpy, card):
             raise AssertionError(f"{path}: level counts differ")
         if not np.array_equal(geo.stem_occ.float().cpu().numpy(), ref_occ):
             raise AssertionError(f"{path}: stem occupancy differs")
+        for lvl, (p, q) in enumerate(zip(geo.self3, host_dev.self3)):
+            for f in p.skip._fields:
+                if not torch.equal(getattr(p.skip, f), getattr(q.skip, f)):
+                    raise AssertionError(f"{path}: self3[{lvl}].skip.{f} "
+                                         "differs from the host path's")
         del geo, got
         torch.cuda.synchronize()
         t0 = time.time()
@@ -464,7 +545,8 @@ def geometry_phase(raw, caps, host_geo, t_numpy, card):
     raw_geo = np.asarray(raw.coords).nbytes
     host_geo_bytes = sum(a.nbytes for a in ref.values())
     print(f"geometry on the card: {len(ref) - 1} arrays and the stem "
-          f"occupancy bit-identical to the NumPy builder (caps {caps}), no "
+          f"occupancy bit-identical to the NumPy builder, the 5 levels' skip "
+          f"plans to the host path's (caps {caps}), no "
           f"overflow; build grid {times['grid'][0]:.3f} ms (wall with the "
           f"count read {times['grid'][1]:.1f} ms), search "
           f"{times['search'][0]:.3f} ms (wall {times['search'][1]:.1f} ms); "
@@ -525,15 +607,16 @@ def up_kernel_phase(geo):
                      f"{parent.cap} (valid {parent.num}), child rows "
                      f"{child.cap} (valid {child.num})",
             "max_abs_err": err, "tol": tol,
-            "ms": cuda_time_ms(lambda: up_conv_fwd(x, w, plan)),
-            "plain_ms": cuda_time_ms(lambda: up_conv_plain(x, w, plan),
-                                     iters=5),
-            "library_ms": cuda_time_ms(
+            "ms": device_ms(lambda: up_conv_fwd(x, w, plan)),
+            "host_ms": cuda_time_ms(lambda: up_conv_fwd(x, w, plan)),
+            "plain_ms": device_ms(lambda: up_conv_plain(x, w, plan),
+                                  iters=5),
+            "library_ms": device_ms(
                 lambda: up_conv_dense_fwd(x, w, plan), iters=5),
             # the launch alone and the grouping alone (both inside "ms")
-            "launch_only_ms": cuda_time_ms(lambda: launch_up_conv(
+            "launch_only_ms": device_ms(lambda: launch_up_conv(
                 x, wb, plan.child_parent, *grouped)),
-            "grouping_ms": cuda_time_ms(
+            "grouping_ms": device_ms(
                 lambda: group_children(plan.child_offset)),
             "bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations"})
@@ -613,7 +696,19 @@ def profile_device(fn, what):
     for ms, n, key in rows[:10]:
         print(f"profiler[{what}]: {ms:9.3f} ms {100 * ms / busy:5.1f}% "
               f"x{n:<4d} {key[:90]}", flush=True)
-    return busy
+    return busy, rows
+
+
+def conv_kernel_ms(rows):
+    """{kernel: (launches, device ms)} of the two stencil sources' kernels
+    in a profile (the offset groups' and the row splits' partial sums have
+    a reduce each)."""
+    out = {}
+    for name in ("gather_gemm_fwd_kernel", "reduce_groups_kernel",
+                 "gather_wgrad_kernel", "reduce_partials_kernel"):
+        hit = [r for r in rows if name in r[2]]
+        out[name] = (sum(r[1] for r in hit), sum(r[0] for r in hit))
+    return out
 
 
 def breakdown(step, model, text, sample, dim):
@@ -633,7 +728,7 @@ def breakdown(step, model, text, sample, dim):
     print(f"scene 0 breakdown: host assembly (geometry plans) "
           f"{t_host * 1e3:.1f} ms, device step (plans to device, forward, "
           f"text product) {t_step * 1e3:.1f} ms", flush=True)
-    busy = profile_device(lambda: step(model, text, batch), "eval")
+    busy, _ = profile_device(lambda: step(model, text, batch), "eval")
     if busy:
         print(f"profiler[eval]: device busy {busy:.3f} ms in the profiled "
               f"step (unprofiled step {t_step * 1e3:.1f} ms)", flush=True)
@@ -647,10 +742,15 @@ def plain_path():
     from openscene_tpu_torch.sparse import edge_conv, stencil_conv
 
     wrappers()  # hold the kernel wrappers themselves before the names move
-    swaps = [(stencil_conv, "stencil_conv_fwd",
-              stencil_conv.stencil_conv_plain),
-             (stencil_conv, "stencil_conv_bwd",
-              stencil_conv.stencil_conv_bwd_plain),
+
+    def fwd_plain(x, w, fwd, skip=None):  # the plain versions need no skip
+        return stencil_conv.stencil_conv_plain(x, w, fwd)
+
+    def bwd_plain(x, w, g, fwd, flip_perm, skip=None):
+        return stencil_conv.stencil_conv_bwd_plain(x, w, g, fwd, flip_perm)
+
+    swaps = [(stencil_conv, "stencil_conv_fwd", fwd_plain),
+             (stencil_conv, "stencil_conv_bwd", bwd_plain),
              (edge_conv, "down_conv_fwd", edge_conv.down_conv_plain),
              (edge_conv, "down_conv_bwd", edge_conv.down_conv_bwd_plain),
              (edge_conv, "up_conv_bwd", edge_conv.up_conv_bwd_plain)]
@@ -973,7 +1073,8 @@ def main():
     print(f"train batch: {int(raw.num)} voxels, level caps {caps}, valid "
           f"rows {[l.num for l in tgeo.levels]}", flush=True)
     cases.update(kernels_phase_bwd(tgeo))
-    geo_stats = geometry_phase(raw, caps, host_geo, t_numpy, card)
+    geo_stats = geometry_phase(raw, caps, host_geo, t_numpy, card, tgeo)
+    skip_stats = skip_phase(tgeo, card)
     cases["up_conv_fwd"] = up_kernel_phase(tgeo)
     del tgeo
     # kernel 7: its benchmark is its main path (the launches counted)
@@ -985,8 +1086,12 @@ def main():
                                   tol=0.0) for r in pack_rows]
     for name, shapes in cases.items():
         for c in shapes:
-            print(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms, plain "
-                  f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, "
+            print(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms"
+                  + (f" (host-inclusive {c['host_ms']:.4f})" if "host_ms" in c
+                     else "") + f", plain "
+                  f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}"
+                  + (f" (host-inclusive {c['library_host_ms']:.4f})"
+                     if "library_host_ms" in c else "") + ", "
                   f"bound {c['bound_ms']:.5f} ({c['bound_by']})"
                   + (f", dense {c['dense_bound_ms']:.5f} "
                      f"({c['dense_bound_by']})" if "dense_bound_ms" in c
@@ -1067,12 +1172,16 @@ def main():
         fn()
         torch.cuda.synchronize()
         t_step = time.time() - t0
-        busy = profile_device(fn, what)
+        busy, prow = profile_device(fn, what)
         if busy:
+            conv = conv_kernel_ms(prow)
             print(f"profiler[{what}]: device busy {busy:.3f} ms in the "
                   f"profiled train step (unprofiled step "
-                  f"{t_step * 1e3:.1f} ms, {int(praw.num)} voxels) [{card}]",
-                  flush=True)
+                  f"{t_step * 1e3:.1f} ms, {int(praw.num)} voxels); stencil "
+                  f"sources {json.dumps(conv)} (launches, ms): "
+                  f"{sum(v[1] for v in conv.values()):.3f} ms against the "
+                  f"dense design's {DENSE_DESIGN_TRAIN_CONV_MS[0]} + "
+                  f"{DENSE_DESIGN_TRAIN_CONV_MS[1]} ms [{card}]", flush=True)
     compare_train_step(trainer, host_batch)
 
     # ---- 5. the per-op benchmark on the train batch: kernel 5's path ----
@@ -1114,6 +1223,7 @@ def main():
         else:
             entry["also_launches"] = FWD_SOURCE + " (dx)"
         kernels.append(entry)
+    print(f"skip plans: {json.dumps(skip_stats)}", flush=True)
     print(f"geometry: {json.dumps(geo_stats)}; host assembly ms raw "
           f"{t_raw_asm:.1f}, host geometry {t_host_asm:.1f}", flush=True)
     print(card, flush=True)

@@ -29,181 +29,235 @@
 // over: both CUDA kernels read the plain index plans.
 //
 // Bound of one backward on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense
-// bf16), dx and dW together:
+// bf16), dx and dW together, counted by the data (the (row, offset) pairs
+// whose neighbour exists):
 //   bytes = (rows_a*Ca + rows_b*Cb + rows_dx*Cdx)*2 + K*rows*4
 //           + K*Ca*Cb*(2 + 4)
 //   flops = 2 products of 2*pairs*Ca*Cb
-// Counted densely (all K offsets of every row, which is what these kernels
-// multiply) the k=3 stencil backward is bound by operations; counted by the
-// data (about 6 of 27 neighbours exist on 2 cm surface scans) and for the
-// K = 8 edges it is bound by bytes.
+// Bound by bytes at about 6 of 27 neighbours and for the K = 8 edges.
 //
-// Reduction strategy.  The TPU kernel carries its (K*Cout, Cin) fp32
-// accumulator across a sequential grid; CUDA blocks run in no order, so the
-// long row dimension is split instead: block (tile, k, s) reduces rows
-// [s*rows_per_split, (s+1)*rows_per_split) of one 64 x 64 tile of dw[k] into
-// fp32 WMMA fragments and writes one partial tile; a second kernel adds the
-// `splits` partials of every element in a fixed order.  The result is
-// therefore deterministic: the same inputs give the same bits from run to
-// run (fp32 atomicAdd would not), and it differs from the plain version only
-// in the order of its fp32 sums.  With one split the first kernel writes dw
-// itself and the second does not run.  The caller chooses the split so that
-// small levels still fill the card while the partials stay small.
-//
-// Design (simple and correct first): 4 warps per block, each a 32 x 32 slab
-// of the tile as 2 x 2 WMMA 16x16x16 bf16 products (mma.sync).  Per step of
-// 32 rows the block stages a's rows (read as the transposed operand through a
-// col_major fragment, so no transpose is materialised) and the gathered rows
-// of b in shared memory with 16-byte loads (Ca, Cb multiples of 8).  TMA,
-// wgmma, a cp.async ring and skipping row chunks whose neighbours are all
-// missing are left to later work.
+// Design.
+//   * Skip mode (a ConvSkip of the plan, K <= 31): offset k reduces only
+//     over its compacted rows pair_rows[k][0 .. pair_count[k]), the rows
+//     whose neighbour exists, so no missing pair is gathered or multiplied.
+//     Dense mode (no skip plan, the K = 8 edges): every row.
+//   * Grid (Ca tile x Cb tile, k, split).  Split s covers pair positions
+//     [s*per, (s+1)*per) of its offset; the splits are sized on the host
+//     from a bound on every count (the level's rows), so no count is read
+//     back, and a block whose split starts at or past its offset's count
+//     exits at once.
+//   * Tiles of 32..128 by 32..128 channels that fit Ca and Cb, one warp per
+//     32 x 32 sub-tile; the rows are the reduction dimension: a's rows are
+//     read as the transposed A operand (ldmatrix.trans, no transpose is
+//     materialised), the gathered rows of b as B, 2 x 4 mma.sync m16n8k16
+//     bf16 products per 16 rows.
+//   * Pipeline: the block reads its rows' indices (a row, b's source row)
+//     into shared memory 1,024 at a time, then streams 32-row steps through
+//     a 3-stage cp.async ring of 16-byte copies.
+//   * Reduction: each block writes its fp32 partial tile; a second kernel
+//     adds the partials of every element in a fixed order, over the splits
+//     that hold rows.  The result is deterministic, the same bits from run
+//     to run (fp32 atomicAdd would not be), and differs from the plain
+//     version only in the order of its fp32 sums.  With one split the first
+//     kernel writes dw itself and the second does not run.
+//   mma.sync rather than wgmma for the reason given in gather_gemm_fwd.cu:
+//   the gathered rows land in a plain padded layout.
 //
 // The launcher allocates nothing, runs on the caller's stream, does not
 // synchronise, and returns cudaGetLastError() of its launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstdint>
+#include "mma_sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using bf16 = __nv_bfloat16;
 
-constexpr int BM = 64;        // a channels (rows of dw[k]) per block
-constexpr int BN = 64;        // b channels (columns of dw[k]) per block
-constexpr int BR = 32;        // reduction rows per step
-constexpr int THREADS = 128;  // 4 warps, a 2 x 2 grid of 32 x 32 warp tiles
-constexpr int LDA = BM + 8;   // padded shared-memory strides (elements)
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;
+constexpr int BR = 32;           // reduction rows per pipeline step
+constexpr int STAGES = 3;        // cp.async ring depth
+constexpr int IDXN = 1024;       // row indices staged in shared memory
+constexpr int MAX_THREADS = 512;
 
-__global__ void __launch_bounds__(THREADS)
-gather_wgrad_kernel(const __nv_bfloat16* __restrict__ a,
-                    const __nv_bfloat16* __restrict__ b,
+__global__ void __launch_bounds__(MAX_THREADS)
+gather_wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                     const int32_t* __restrict__ idx,
-                    float* __restrict__ part,
-                    int rows, int K, int ca, int cb, int rows_per_split,
-                    int tiles_b) {
-  __shared__ __align__(128) __nv_bfloat16 As[BR * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BR * LDB];
-  __shared__ __align__(128) float Cs[BM * LDC];
-
+                    const int32_t* __restrict__ pair_rows,
+                    const int32_t* __restrict__ pair_count,
+                    float* __restrict__ dst, int rows, int K, int ca, int cb,
+                    int per, int tiles_b, int bma, int bnb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nthreads = blockDim.x;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;  // warp's 32-row slab of the tile
-  const int wn = warp & 1;   // warp's 32-column slab
-  const int m0 = (blockIdx.x / tiles_b) * BM;
-  const int n0 = (blockIdx.x % tiles_b) * BN;
+  const int lane = tid & 31;
+  const int warps_n = bnb >> 5;
+  const int wm = (tid >> 5) / warps_n;  // warp's 32 a-channels
+  const int wn = (tid >> 5) % warps_n;  // warp's 32 b-channels
+  const int lda = bma + 8;
+  const int ldb = bnb + 8;
+  const int m0 = (blockIdx.x / tiles_b) * bma;
+  const int n0 = (blockIdx.x % tiles_b) * bnb;
   const int k = blockIdx.y;
   const int split = blockIdx.z;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(rows, r_begin + rows_per_split);
+  const int n_k = pair_count ? pair_count[k] : rows;
+  const int r_begin = split * per;
+  // an empty split leaves nothing to add; split 0 always writes its tile
+  if (r_begin >= n_k && split != 0) return;
+
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + STAGES * BR * lda;
+  int* ra = reinterpret_cast<int*>(Bs + STAGES * BR * ldb);  // a row
+  int* rb = ra + IDXN;                                         // b row
   const int32_t* idx_k = idx + (size_t)k * rows;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int r0 = r_begin; r0 < r_end; r0 += BR) {
-    // a tile: BR rows x BM channels, 8 channels per vector
-    for (int v = tid; v < BR * (BM / 8); v += THREADS) {
-      const int i = v / (BM / 8);
-      const int cc = (v % (BM / 8)) * 8;
-      const int r = r0 + i;
-      uint4 val = zero;
-      if (r < r_end && m0 + cc < ca)
-        val = *reinterpret_cast<const uint4*>(a + (size_t)r * ca + m0 + cc);
-      *reinterpret_cast<uint4*>(&As[i * LDA + cc]) = val;
-    }
-    // gathered b tile: BR rows x BN channels through idx[k]
-    for (int v = tid; v < BR * (BN / 8); v += THREADS) {
-      const int i = v / (BN / 8);
-      const int nn = (v % (BN / 8)) * 8;
-      const int r = r0 + i;
-      const int src = r < r_end ? idx_k[r] : -1;
-      uint4 val = zero;
-      if (src >= 0 && n0 + nn < cb)
-        val = *reinterpret_cast<const uint4*>(b + (size_t)src * cb + n0 + nn);
-      *reinterpret_cast<uint4*>(&Bs[i * LDB + nn]) = val;
+  float acc[2][4][4];
+  gg::zero_acc(acc);
+  const int r_end = min(n_k, r_begin + per);
+  const int va = bma / 8;  // 16-byte vectors per staged row
+  const int vb = bnb / 8;
+  for (int c_begin = r_begin; c_begin < r_end; c_begin += IDXN) {
+    const int n_c = min(IDXN, r_end - c_begin);
+    __syncthreads();  // the previous chunk's ring and indices are consumed
+    for (int v = tid; v < n_c; v += nthreads) {
+      const int p = c_begin + v;
+      const int r = pair_rows ? pair_rows[(size_t)k * rows + p] : p;
+      ra[v] = r;
+      rb[v] = idx_k[r];
     }
     __syncthreads();
+    const int steps = (n_c + BR - 1) / BR;
+
+    auto load = [&](int st) {
+      const int slot = st % STAGES;
+      const int q0 = st * BR;
+      bf16* as = As + slot * BR * lda;
+      bf16* bs = Bs + slot * BR * ldb;
+      for (int v = tid; v < BR * va; v += nthreads) {
+        const int i = v / va;
+        const int cc = (v - i * va) * 8;
+        const int q = q0 + i;
+        const bool ok = q < n_c && m0 + cc < ca;
+        gg::cp_async16(as + i * lda + cc,
+                       ok ? a + (size_t)ra[q] * ca + m0 + cc : a, ok);
+      }
+      for (int v = tid; v < BR * vb; v += nthreads) {
+        const int i = v / vb;
+        const int nn = (v - i * vb) * 8;
+        const int q = q0 + i;
+        const int src = q < n_c ? rb[q] : -1;
+        const bool ok = src >= 0 && n0 + nn < cb;
+        gg::cp_async16(bs + i * ldb + nn,
+                       ok ? b + (size_t)src * cb + n0 + nn : b, ok);
+      }
+    };
+
 #pragma unroll
-    for (int kk = 0; kk < BR; kk += 16) {
-      // a^T: element (channel i, row j) sits at As[j * LDA + i] = col_major
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &As[kk * LDA + wm * 32 + i * 16], LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], &Bs[kk * LDB + wn * 32 + j * 16], LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < steps) load(s);
+      gg::cp_async_commit();
     }
-    __syncthreads();
+    for (int st = 0; st < steps; ++st) {
+      gg::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (st + STAGES - 1 < steps) load(st + STAGES - 1);
+      gg::cp_async_commit();
+      const bf16* as = As + (st % STAGES) * BR * lda + wm * 32;
+      const bf16* bs = Bs + (st % STAGES) * BR * ldb + wn * 32;
+#pragma unroll
+      for (int kk = 0; kk < BR; kk += 16) {
+        // a^T: element (channel m, row q) sits at as[q * lda + m]
+        unsigned af[2][4], bfr[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          gg::ldsm_x4_t(af[i], as + (kk + (lane & 7) + ((lane >> 4) << 3)) *
+                                        lda +
+                                    i * 16 + ((lane >> 3) & 1) * 8);
+        gg::load_b(bfr, bs + kk * ldb, ldb, lane);
+        gg::mma_tile(acc, af, bfr);
+      }
+    }
+    gg::cp_async_wait<0>();
   }
 
+  // this block's partial tile of dw[k]
+  float* out = dst + ((size_t)split * K + k) * ca * cb;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int t = 0; t < 4; ++t) {
+    const int n = n0 + wn * 32 + t * 8 + tq * 2;
+    if (n >= cb) continue;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * LDC + wn * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  // this block's partial tile of dw[k], 4 columns (16 bytes) per store
-  float* out = part + ((size_t)split * K + k) * ca * cb;
-  for (int v = tid; v < BM * (BN / 4); v += THREADS) {
-    const int i = v / (BN / 4);
-    const int nn = (v % (BN / 4)) * 4;
-    const int m = m0 + i;
-    const int n = n0 + nn;
-    if (m < ca && n < cb)
-      *reinterpret_cast<float4*>(out + (size_t)m * cb + n) =
-          *reinterpret_cast<const float4*>(&Cs[i * LDC + nn]);
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 32 + i * 16 + g + h * 8;
+        if (m < ca)
+          *reinterpret_cast<float2*>(out + (size_t)m * cb + n) =
+              make_float2(acc[i][t][2 * h], acc[i][t][2 * h + 1]);
+      }
   }
 }
 
-// out[i] = part[0][i] + part[1][i] + ... in that order
+// out[i] = part[0][i] + part[1][i] + ... in that order, over the splits of
+// element i's offset that hold rows
 __global__ void reduce_partials_kernel(const float* __restrict__ part,
                                        float* __restrict__ out, size_t n,
-                                       int splits) {
+                                       int plane, int splits, int per,
+                                       int rows,
+                                       const int32_t* __restrict__ pair_count) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const int n_k = pair_count ? pair_count[i / plane] : rows;
+  const int used = max(1, min(splits, (n_k + per - 1) / per));
   float s = 0.0f;
-  for (int sp = 0; sp < splits; ++sp) s += part[(size_t)sp * n + i];
+  for (int sp = 0; sp < used; ++sp) s += part[(size_t)sp * n + i];
   out[i] = s;
+}
+
+// the dynamic shared memory a launch needs; raised once per size
+int ensure_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gather_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) allowed = bytes;
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// part: (splits, K, ca, cb) fp32 scratch, unused when splits == 1.
+// pair_rows, pair_count: the skip plan, or both null (dense).  part:
+// (splits, K, ca, cb) fp32 scratch, unused when splits == 1.  bma, bnb:
+// multiples of 32, (bma/32)*(bnb/32) <= 16 warps.
 extern "C" int gather_wgrad_bf16(const void* a, const void* b, const void* idx,
+                                 const void* pair_rows, const void* pair_count,
                                  void* part, void* out, int rows, int K,
-                                 int ca, int cb, int rows_per_split,
+                                 int ca, int cb, int bma, int bnb, int per,
                                  int splits, void* stream) {
+  const int threads = (bma / 32) * (bnb / 32) * 32;
+  if (bma <= 0 || bnb <= 0 || bma % 32 || bnb % 32 || threads > MAX_THREADS ||
+      per <= 0 || splits <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles_a = (ca + BM - 1) / BM;
-  const int tiles_b = (cb + BN - 1) / BN;
+  const size_t smem = (size_t)STAGES * BR * (bma + 8 + bnb + 8) * 2 +
+                      (size_t)2 * IDXN * 4;
+  const int serr = ensure_smem(smem);
+  if (serr) return serr;
+  const int tiles_a = (ca + bma - 1) / bma;
+  const int tiles_b = (cb + bnb - 1) / bnb;
   const dim3 grid(tiles_a * tiles_b, K, splits);
   float* dst = static_cast<float*>(splits == 1 ? out : part);
-  gather_wgrad_kernel<<<grid, THREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), static_cast<const int32_t*>(idx),
-      dst, rows, K, ca, cb, rows_per_split, tiles_b);
-  cudaError_t err = cudaGetLastError();
+  gather_wgrad_kernel<<<grid, threads, smem, st>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<const int32_t*>(idx),
+      static_cast<const int32_t*>(pair_rows),
+      static_cast<const int32_t*>(pair_count), dst, rows, K, ca, cb, per,
+      tiles_b, bma, bnb);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n = (size_t)K * ca * cb;
   reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), n, splits);
+      static_cast<const float*>(part), static_cast<float*>(out), n, ca * cb,
+      splits, per, rows, static_cast<const int32_t*>(pair_count));
   return static_cast<int>(cudaGetLastError());
 }

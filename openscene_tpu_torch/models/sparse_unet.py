@@ -42,7 +42,8 @@ from ..sparse.types import ConvPlan, DownPlan, UNetGeometry
 
 def _stencil_conv(x, w, plan: ConvPlan):
     """Stencil conv (k=3 blocks; k=5 stem on non-constant input): the CUDA
-    kernel's wrapper at every level.  Input channels that are not a multiple
+    kernel's wrapper at every level, with the plan's skip plan (None for
+    the stem, which runs densely).  Input channels that are not a multiple
     of 8 (the 3-channel colour stem) are zero-padded, which adds exact
     zeros, so the kernel's 16-byte row vectors apply; autograd of the pad
     drops the padded rows of dW again."""
@@ -51,7 +52,7 @@ def _stencil_conv(x, w, plan: ConvPlan):
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
         w = torch.nn.functional.pad(w, (0, 0, 0, pad))
-    return StencilConv.apply(x.contiguous(), w, plan.fwd, plan.flip_perm)
+    return StencilConv.apply(x.contiguous(), w, plan)
 
 
 def _edge_down_conv(x, w, plan: DownPlan):

@@ -6,8 +6,8 @@ the grid prober and the search path, stem occupancy on) and times with CUDA
 events, at MinkUNet18A's widths:
 
 * the k=3 stencil convs per level at the JAX bench's ``level_shapes``:
-  forward and forward+backward, through the kernels and through the plain
-  versions;
+  forward and forward+backward, through the kernels (with the level's skip
+  plan) and through the plain versions;
 * the k=2 s=2 down convs per edge (``down_ch``), kernels and plain;
 * the up convs per edge (``up_ch``) three ways: the model's route
   (``UpConv``: dense parent GEMMs + one gather forward, kernel 4 backward),
@@ -114,9 +114,11 @@ def bench_ops(coords: np.ndarray, num: int, n_scenes: Optional[int] = None,
             a = (x, w, plan.fwd)
             b = (x, w, g, plan.fwd, plan.flip_perm)
             rows.append({"op": f"L{lvl} stencil", "shape": f"{cin}x{cout}",
-                         **timed(kernel_f=lambda: stencil_conv_fwd(*a),
-                                 kernel_fb=lambda: (stencil_conv_fwd(*a),
-                                                    stencil_conv_bwd(*b)),
+                         **timed(kernel_f=lambda: stencil_conv_fwd(
+                                     *a, plan.skip),
+                                 kernel_fb=lambda: (
+                                     stencil_conv_fwd(*a, plan.skip),
+                                     stencil_conv_bwd(*b, plan.skip)),
                                  plain_f=lambda: stencil_conv_plain(*a),
                                  plain_fb=lambda: (stencil_conv_plain(*a),
                                                    stencil_conv_bwd_plain(

@@ -7,8 +7,9 @@ first use into a shared library with a plain C interface, loaded with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/kernels/<name>_<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so a changed
-source is rebuilt and a stale library is never loaded.  The build goes
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source is rebuilt and a stale
+library is never loaded.  The build goes
 under ``build/kernels/`` beside the package (``.gitignore`` lists
 ``build/``); ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
 spills) is kept beside each library as ``.log``.
@@ -52,9 +53,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
+    """The library of ``csrc/<name>.cu``: its name hashes the source, every
+    shared header of ``csrc/`` and the flags."""
     h = hashlib.sha256()
-    with open(join(CSRC, name + ".cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [name + ".cu"] + headers:
+        with open(join(CSRC, path), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return join(BUILD_DIR, f"{name}_{h.hexdigest()[:12]}.so")
 

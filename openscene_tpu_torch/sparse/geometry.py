@@ -26,6 +26,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .stencil_conv import build_conv_skip
 from .types import (ConvPlan, DownPlan, LevelGeometry, UNetGeometry,
                     flip_permutation, stencil_offsets)
 
@@ -251,16 +252,21 @@ def _check_rows(fwd: np.ndarray, rows_in: int, what: str) -> None:
 def geometry_to_device(geo: UNetGeometry, device) -> UNetGeometry:
     """The same geometry with every plan array as an int32 tensor on
     ``device``; each level's ``num`` stays a host int (it sizes masks and
-    BatchNorm statistics without a device round trip).  Raises if a gather
-    index lies outside its source level."""
+    BatchNorm statistics without a device round trip).  Each k=3 plan gets
+    its skip plan (``stencil_conv.build_conv_skip``), built on ``device``,
+    bit-identical to the one ``geometry_device.build_geometry_parts`` builds
+    for the same plans.  Raises if a gather index lies outside its source
+    level."""
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
 
-    def plan(p, cap, what):
+    def plan(p, cap, what, num=None):
         if p is None:
             return None
         _check_rows(np.asarray(p.fwd), cap, what)
-        return ConvPlan(fwd=t(p.fwd), flip_perm=t(p.flip_perm))
+        fwd = t(p.fwd)
+        skip = None if num is None else build_conv_skip(fwd, int(num))
+        return ConvPlan(fwd=fwd, flip_perm=t(p.flip_perm), skip=skip)
 
     caps = [l.cap for l in geo.levels]
     for e, d in enumerate(geo.down):
@@ -272,7 +278,7 @@ def geometry_to_device(geo: UNetGeometry, device) -> UNetGeometry:
         levels=tuple(LevelGeometry(coords=t(l.coords), num=int(l.num))
                      for l in geo.levels),
         stem=plan(geo.stem, caps[0], "stem.fwd"),
-        self3=tuple(plan(p, caps[l], f"self3[{l}].fwd")
+        self3=tuple(plan(p, caps[l], f"self3[{l}].fwd", geo.levels[l].num)
                     for l, p in enumerate(geo.self3)),
         down=tuple(DownPlan(fwd=t(d.fwd), child_parent=t(d.child_parent),
                             child_offset=t(d.child_offset))

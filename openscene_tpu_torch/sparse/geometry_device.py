@@ -35,6 +35,11 @@ tensor on the device, so the build never waits for the device):
 * **Null rows** use the host builder's multiplicative shuffle, whose uint32
   wraparound is computed in int64 and masked to 32 bits.
 
+Every k=3 plan carries its skip plan (``ConvPlan.skip``, built by
+``stencil_conv.build_conv_skip`` from the plan and the level's 0-d ``num``,
+no host read), the same as ``geometry.geometry_to_device`` builds for the
+host plans.
+
 ``n_scenes`` switches the stencil probing to the occupancy-grid prober of
 :mod:`.grid`.  The overflow flag (a 0-d bool tensor) is set when a coarse
 level outgrows its cap or a scene leaves the grid; the plans are then not
@@ -49,6 +54,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .stencil_conv import build_conv_skip
 from .types import (ConvPlan, DownPlan, LevelGeometry, UNetGeometry,
                     flip_permutation, stencil_offsets)
 
@@ -363,6 +369,10 @@ def build_geometry_parts(coords: torch.Tensor, num, caps: Sequence[int],
                                         shared=l0_probes if lvl == 0
                                         else None)
                  for lvl, lv in enumerate(levels)]
+    # each level's skip plan, built once per batch and shared by every k=3
+    # conv on the level, forward and backward
+    self3 = [p._replace(skip=build_conv_skip(p.fwd, lv.num))
+             for p, lv in zip(self3, levels)]
     geo = UNetGeometry(levels=tuple(levels), stem=stem, self3=tuple(self3),
                        down=tuple(downs), stem_occ=stem_occ)
     return geo, overflow
@@ -372,7 +382,8 @@ def with_host_counts(geo: UNetGeometry, overflow: torch.Tensor):
     """Read every level's ``num`` and the overflow flag in one transfer
     (the one wait for the device per built batch).  Returns ``(geo with int
     nums, overflow bool)``: the model sizes its masks and BatchNorm
-    statistics from host ints."""
+    statistics from host ints.  The plans, skip plans included, are kept
+    as they are."""
     vals = torch.stack([overflow.to(torch.int64)]
                        + [torch.as_tensor(l.num).to(torch.int64)
                           for l in geo.levels]).tolist()

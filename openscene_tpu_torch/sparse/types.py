@@ -56,6 +56,28 @@ class LevelGeometry(NamedTuple):
         return self.coords.shape[0]
 
 
+class ConvSkip(NamedTuple):
+    """Which (row, offset) pairs of a :class:`ConvPlan` hold a neighbour: the
+    layout the CUDA stencil kernels read to skip the missing ones (built by
+    ``sparse/stencil_conv.py:build_conv_skip`` from ``fwd`` and ``num``
+    alone; the part the TPU kernels' window plans played).
+
+    nbr_mask:   (cap,) int32 — bit k set iff ``fwd[k, r] < num`` (and
+                ``r < num``); padded rows 0.  K <= 31.
+    order:      (cap,) int32 — the rows stably sorted by ``nbr_mask``.
+    tile_mask:  (ceil(cap / TILE_ROWS),) int32 — OR of ``nbr_mask`` over each
+                tile of ``TILE_ROWS`` consecutive entries of ``order``.
+    pair_rows:  (K, cap) int32 — for each offset, the rows whose neighbour
+                exists, ascending; padded with ``cap - 1`` (a zero row).
+    pair_count: (K,) int32 — the number of such rows per offset.
+    """
+    nbr_mask: np.ndarray
+    order: np.ndarray
+    tile_mask: np.ndarray
+    pair_rows: np.ndarray
+    pair_count: np.ndarray
+
+
 class ConvPlan(NamedTuple):
     """Stride-1 stencil conv plan on one level (self edge).
 
@@ -63,9 +85,13 @@ class ConvPlan(NamedTuple):
                missing neighbors and padded rows point at the null row.
     flip_perm: (K,) int32 — index of the mirrored offset (-delta), used by the
                backward pass (transpose of a partial bijection).
+    skip:      optional :class:`ConvSkip` of ``fwd``, set on the device
+               plans of the k=3 convs (``geometry_to_device``,
+               ``build_geometry_parts``); None runs the kernels densely.
     """
     fwd: np.ndarray
     flip_perm: np.ndarray
+    skip: Optional[ConvSkip] = None
 
     @property
     def K(self) -> int:

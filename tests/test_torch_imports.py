@@ -153,12 +153,22 @@ def test_bwd_wrapper_never_falls_back_off_cpu(which):
 
 
 def test_wgrad_split_covers_the_rows():
-    from openscene_tpu_torch.sparse.stencil_conv import wgrad_split
+    from openscene_tpu_torch.sparse import stencil_conv as sc
     for rows, K, ca, cb in ((300032, 27, 128, 96), (4096, 27, 256, 256),
-                            (136704, 8, 32, 32), (1, 8, 8, 8), (33, 27, 8, 8)):
-        per, splits = wgrad_split(rows, K, ca, cb)
-        assert per % 32 == 0 and per >= 1024 and 1 <= splits <= 65535
-        assert (splits - 1) * per < rows <= splits * per
+                            (136704, 8, 32, 32), (1, 8, 8, 8), (33, 27, 8, 8),
+                            (1115648, 27, 384, 128)):
+        for skip in (False, True):
+            bma, bnb, per, splits = sc.wgrad_tiles(rows, K, ca, cb, skip)
+            assert per % 32 == 0 and 1 <= splits <= 65535
+            assert sc.WGRAD_MIN_ROWS <= per <= sc.WGRAD_MAX_ROWS
+            assert (splits - 1) * per < rows <= splits * per
+            # tiles of 32..128 channels in 32 x 32 warp tiles, <= 16 warps
+            assert bma in sc.WGRAD_TILES and bnb in sc.WGRAD_TILES
+            assert bma * bnb // 32 ** 2 <= sc.MAX_WARPS
+    # a skip plan leaves most rows of the bound without a pair: its splits
+    # are shorter, so the splits that hold rows still fill the card
+    assert (sc.wgrad_tiles(300032, 27, 128, 96, True)[2]
+            < sc.wgrad_tiles(300032, 27, 128, 96, False)[2])
 
 
 def test_kernel_build_is_content_hashed(monkeypatch):

@@ -36,7 +36,7 @@ from openscene_tpu_torch.sparse.edge_conv import (DownConv, UpConv,
 from openscene_tpu_torch.sparse.geometry import build_unet_geometry
 from openscene_tpu_torch.sparse.stencil_conv import (StencilConv,
                                                      stencil_conv_bwd)
-from openscene_tpu_torch.sparse.types import DownPlan
+from openscene_tpu_torch.sparse.types import ConvPlan, DownPlan
 from tests.test_torch_sparse_ops import (_acts, _pair, geo,  # noqa: F401
                                          interpret_mode, window_geo)
 from tests.test_torch_unet import _one_thread  # noqa: F401
@@ -105,7 +105,8 @@ def test_stencil_conv_grads_match_jax(geo, dtype, level, cin, cout):
     ref = _jax_grads(lambda a, b: jops.sparse_conv(
         a, b, jnp.asarray(plan.fwd), jnp.asarray(plan.flip_perm)),
         xj, jnp.asarray(w), gj)
-    got = _grads(lambda a, b: StencilConv.apply(a, b, fwd, fp), x, wt, g)
+    got = _grads(lambda a, b: StencilConv.apply(a, b, ConvPlan(fwd, fp)),
+                 x, wt, g)
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     _check(got, ref, num, dtype)
     # the wrapper and the plain function themselves; fp32 cotangent cast once
@@ -250,9 +251,10 @@ def test_stencil_function_matches_dense_conv3d(tiny):
         return out.permute(1, 2, 3, 0)[cx, cy, cz]
 
     fwd, fp = torch.from_numpy(plan.fwd), torch.from_numpy(plan.flip_perm)
-    out = StencilConv.apply(x, w, fwd, fp)
+    out = StencilConv.apply(x, w, ConvPlan(fwd, fp))
     torch.testing.assert_close(out[:num], dense(x, w), rtol=1e-10, atol=1e-10)
-    dx, dw = _grads(lambda a, b: StencilConv.apply(a, b, fwd, fp), x, w, g)
+    dx, dw = _grads(lambda a, b: StencilConv.apply(a, b, ConvPlan(fwd, fp)),
+                    x, w, g)
     dx_ref, dw_ref = _grads(
         lambda a, b: torch.nn.functional.pad(dense(a, b),
                                              (0, 0, 0, cap - num)), x, w, g)
