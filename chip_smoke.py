@@ -22,15 +22,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 3. builds the first train batch's geometry on the card from its level-0
    coordinates, with the occupancy grid and with the search path (stem
    occupancy on), and requires every array to equal the NumPy builder's for
-   the same caps bit for bit, and every level's skip plan to equal the one
-   built for the host plans, with no overflow; prints the build times, the
-   NumPy planner's time and the bytes a raw and a host-geometry batch copy
-   to the card; then prints the skip plans' shares (pairs with a neighbour,
-   (tile, offset) steps the forward runs) and build time;
+   the same caps bit for bit, and every level's skip plan and every edge's
+   groups and skip plan to equal the ones built for the host plans, with no
+   overflow; prints the build times, the NumPy planner's time and the bytes
+   a raw and a host-geometry batch copy to the card; then prints the skip
+   plans' shares (pairs with a neighbour, (tile, offset) steps the forward
+   runs) and the build times of the levels' skip plans and of the edges'
+   layouts;
 4. holds kernel 5 (the up conv over the children, ``up_conv_fwd``) against
    its plain version at the four edges of that batch (one bf16 ulp, padded
-   rows exactly 0) beside the model's dense route, and drives kernel 7 (the
-   pair-packed transpose, ``pack_pairs_t``) through its benchmark
+   rows exactly 0, bit-identical across two launches) beside the dense
+   route that the JAX package's model takes, with its launch alone and the
+   groups' build alone, and drives kernel 7 (the pair-packed transpose,
+   ``pack_pairs_t``) through its benchmark
    (``scripts/dev_pack_bench.bench_pack``) at its five shapes, where kernel,
    plain version and one PyTorch call must be bit-equal;
 5. drives the serving path: zero-shot evaluation of MinkUNet18A at 768-d
@@ -39,15 +43,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (about 125k voxels each), random weights from a seed and pseudo text
    embeddings.  Every kernel's launch counter is set to 0 just before each
    run and read just after: each stencil-conv kernel must launch 32 times
-   and the down-conv kernel 4 times per scene forward.  The outputs must be
+   and the down-conv and up-conv kernels 4 times each per scene forward.  The outputs must be
    finite, and one scene's logits from the kernel path must match the same
    model run through the plain versions on the card;
 6. drives the training path: ``runtime.distill.DistillTrainer`` on ``cuda``
    (device geometry ``auto``, so on), MinkUNet18A, 768-d, cosine loss,
    bf16, batches of 2 synthetic train scenes at 2 cm (about 270k voxels),
    3 steps.  The launch counters are set to 0 before each step and read
-   after it: 32 stencil and 4 down-conv forward launches and 32 stencil, 4
-   down-conv and 4 up-conv backward launches per step, and no overflow.
+   after it: 32 stencil, 4 down-conv and 4 up-conv forward launches and 32
+   stencil, 4 down-conv and 4 up-conv backward launches per step, and no
+   overflow.
    Losses must be finite and the third below the first.  One step through
    device geometry and one through host geometry on the same batch, caps
    and starting state must give the same loss and gradients exactly.  Each
@@ -60,7 +65,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    the plain bf16 path's are (``compare_train_step`` states the limits and
    why bf16 noise is measured rather than assumed);
 7. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
-   train batch with few iterations: the main path of kernel 5;
+   train batch with few iterations: each up conv forward and
+   forward+backward by the model's route against the dense route;
 8. prints the card line, one ``{"kernels": [...]}`` JSON line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -90,6 +96,8 @@ MODES = ("ensemble", "distill")
 STENCILS_PER_FORWARD = 32
 DOWNS_PER_FORWARD = 4
 UPS_PER_FORWARD = 4
+# MinkUNet18A's up convs, (Cin, Cout) by edge: level e+1 -> level e
+UP_WIDTHS = ((96, 96), (128, 96), (128, 128), (256, 128))
 TRAIN_BATCH = 2
 TRAIN_STEPS = 3
 DW_TOL = 1e-4               # weight gradients: fraction of max|plain dW|
@@ -338,8 +346,10 @@ def kernels_phase_bwd(geo):
     one train batch."""
     import torch
     from openscene_tpu_torch.sparse.edge_conv import (
-        down_conv_bwd, down_conv_bwd_plain, up_conv_bwd, up_conv_bwd_plain)
+        EDGE_TILE, down_conv_bwd, down_conv_bwd_plain, up_conv_bwd,
+        up_conv_bwd_plain, up_dx_tiles, up_wgrad_tiles)
     from openscene_tpu_torch.sparse.stencil_conv import (
+        gather_gemm_cuda, gather_wgrad_cuda, launch_gather_wgrad,
         stencil_conv_bwd, stencil_conv_bwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16 = torch.bfloat16
@@ -386,34 +396,55 @@ def kernels_phase_bwd(geo):
              bound_bwd(cap, cap, K * cap, K * cap, K, cin, cout))))
 
     up, down = [], []
-    for edge, up_w, down_w in ((0, (96, 96), (32, 32)),
-                               (1, (128, 96), (32, 32))):
+    for edge, (cin, cout) in enumerate(UP_WIDTHS):
         plan = geo.down[edge]
         child, parent = geo.levels[edge], geo.levels[edge + 1]
         nc, np_, ccap, pcap = child.num, parent.num, child.cap, parent.cap
         what = (f"child rows {ccap} (valid {nc}), parent rows {pcap} "
                 f"(valid {np_})")
-
         # up conv: x on the parents, g on the children
-        cin, cout = up_w
         x, g, w = acts(edge + 1, cin), acts(edge, cout), weights(8, cin, cout)
         wt = w.transpose(1, 2).to(bf16).reshape(8 * cout, cin)
+        wb = w.to(bf16)
 
         def library(x=x, g=g, plan=plan, wt=wt, pcap=pcap):
             G = gathered(g, plan.fwd)
             dx = torch.matmul(G.transpose(0, 1).reshape(pcap, -1), wt)
             return dx, torch.matmul(x.t().unsqueeze(0), G)
 
-        up.append(bwd_case(
-            "up_conv_bwd",
-            lambda x=x, w=w, g=g, p=plan: up_conv_bwd(x, w, g, p),
-            lambda x=x, w=w, g=g, p=plan: up_conv_bwd_plain(x, w, g, p),
-            library, np_, f"K=8 {cin}->{cout} {what}",
-            (bound_bwd(np_, nc, 8 * np_, nc, 8, cin, cout),
-             bound_bwd(pcap, ccap, 8 * pcap, 8 * pcap, 8, cin, cout))))
+        def replaced(x=x, g=g, w=w, plan=plan):
+            # PR 4's design: both products dense over every parent and
+            # offset, on a transposed bf16 copy of W
+            return (gather_gemm_cuda(g, w.transpose(1, 2), plan.fwd),
+                    gather_wgrad_cuda(x, g, plan.fwd))
 
+        case = bwd_case(
+            "up_conv_bwd",
+            lambda x=x, w=wb, g=g, p=plan: up_conv_bwd(x, w, g, p),
+            lambda x=x, w=wb, g=g, p=plan: up_conv_bwd_plain(x, w, g, p),
+            library, np_, f"edge {edge} K=8 {cin}->{cout} {what}",
+            (bound_bwd(np_, nc, 8 * np_, nc, 8, cin, cout),
+             bound_bwd(pcap, ccap, 8 * pcap, 8 * pcap, 8, cin, cout)))
+        # its two launches apart, and the design it replaced
+        case.update(
+            dx_ms=device_ms(lambda g=g, p=plan: gather_gemm_cuda(
+                g, wb, p.fwd, p.skip, w_nk=True,
+                tiles=up_dx_tiles(pcap, cin, cout))),
+            dw_ms=device_ms(lambda x=x, g=g, p=plan: launch_gather_wgrad(
+                x, g, None, (p.groups.rows, p.groups.count),
+                *up_wgrad_tiles(pcap, cin, cout), amap=p.child_parent,
+                seg_tile=EDGE_TILE)),
+            replaced_ms=device_ms(replaced))
+        up.append(case)
+
+    for edge in (0, 1):
+        plan = geo.down[edge]
+        child, parent = geo.levels[edge], geo.levels[edge + 1]
+        nc, np_, ccap, pcap = child.num, parent.num, child.cap, parent.cap
+        what = (f"child rows {ccap} (valid {nc}), parent rows {pcap} "
+                f"(valid {np_})")
         # down conv: x on the children, g on the parents
-        cin, cout = down_w
+        cin, cout = 32, 32
         x, g, w = acts(edge, cin), acts(edge + 1, cout), weights(8, cin, cout)
         wt = w.transpose(1, 2).to(bf16)
 
@@ -438,13 +469,21 @@ def kernels_phase_bwd(geo):
 def skip_phase(geo, card):
     """The skip plans of the train batch's levels: build time on the card,
     the share of (row, offset) pairs that hold a neighbour and the share of
-    (tile, offset) steps the forward kernel runs at L0 128->96's row tile."""
+    (tile, offset) steps the forward kernel runs at L0 128->96's row tile;
+    and the build time of the edges' groups and skip plans."""
     from openscene_tpu_torch.sparse import stencil_conv as sc
+    from openscene_tpu_torch.sparse.edge_conv import with_edge_layouts
 
     def build_all():
         return [sc.build_conv_skip(p.fwd, lv.num)
                 for p, lv in zip(geo.self3, geo.levels)]
-    out = {"build_ms": cuda_time_ms(build_all, iters=5), "levels": []}
+    def build_edges():
+        return [with_edge_layouts(d, geo.levels[e].num,
+                                  geo.levels[e + 1].num)
+                for e, d in enumerate(geo.down)]
+    out = {"build_ms": cuda_time_ms(build_all, iters=5),
+           "edge_layouts_build_ms": cuda_time_ms(build_edges, iters=5),
+           "levels": []}
     for lvl, skip in enumerate(build_all()):
         n, cap = geo.levels[lvl].num, geo.levels[lvl].cap
         pairs = int(skip.pair_count.sum().item())
@@ -467,7 +506,8 @@ def skip_phase(geo, card):
               f"steps {row['active_tile_offset_share']:.4f} at {bm}-row "
               f"tiles", flush=True)
     print(f"skip plan build ms (5 levels, CUDA events): "
-          f"{out['build_ms']:.4f} [{card}]", flush=True)
+          f"{out['build_ms']:.4f}; edge layouts (groups and skip plans, 4 "
+          f"edges): {out['edge_layouts_build_ms']:.4f} [{card}]", flush=True)
     return out
 
 
@@ -483,7 +523,7 @@ def geo_arrays(geo):
             out[f"{name}.fwd"] = plan.fwd
         out[f"{name}.flip_perm"] = plan.flip_perm
     for e, d in enumerate(geo.down):
-        for f in d._fields:
+        for f in ("fwd", "child_parent", "child_offset"):
             out[f"down[{e}].{f}"] = getattr(d, f)
     return out
 
@@ -531,6 +571,13 @@ def geometry_phase(raw, caps, host_geo, t_numpy, card, host_dev):
                 if not torch.equal(getattr(p.skip, f), getattr(q.skip, f)):
                     raise AssertionError(f"{path}: self3[{lvl}].skip.{f} "
                                          "differs from the host path's")
+        for e, (d, h) in enumerate(zip(geo.down, host_dev.down)):
+            for part in ("groups", "skip"):
+                for f, a, b in zip(getattr(d, part)._fields,
+                                   getattr(d, part), getattr(h, part)):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{path}: down[{e}].{part}.{f} "
+                                             "differs from the host path's")
         del geo, got
         torch.cuda.synchronize()
         t0 = time.time()
@@ -546,7 +593,8 @@ def geometry_phase(raw, caps, host_geo, t_numpy, card, host_dev):
     host_geo_bytes = sum(a.nbytes for a in ref.values())
     print(f"geometry on the card: {len(ref) - 1} arrays and the stem "
           f"occupancy bit-identical to the NumPy builder, the 5 levels' skip "
-          f"plans to the host path's (caps {caps}), no "
+          f"plans and the 4 edges' groups and skip plans to the host path's "
+          f"(caps {caps}), no "
           f"overflow; build grid {times['grid'][0]:.3f} ms (wall with the "
           f"count read {times['grid'][1]:.1f} ms), search "
           f"{times['search'][0]:.3f} ms (wall {times['search'][1]:.1f} ms); "
@@ -563,20 +611,20 @@ def geometry_phase(raw, caps, host_geo, t_numpy, card, host_dev):
 
 def up_kernel_phase(geo):
     """Kernel 5 against its plain version at the four edges of the train
-    batch (MinkUNet18A's decoder widths), timed beside the model's dense
-    route (the library yardstick)."""
+    batch (MinkUNet18A's decoder widths), with the plan's groups, timed
+    beside the dense route of the JAX package's model (the library
+    yardstick), with its launch alone and the groups' build alone."""
     import torch
-    from openscene_tpu_torch.sparse.edge_conv import (group_children,
+    from openscene_tpu_torch.sparse.edge_conv import (build_edge_groups,
                                                       launch_up_conv,
-                                                      up_conv_dense_fwd,
                                                       up_conv_fwd,
-                                                      up_conv_plain)
-    from openscene_tpu_torch.sparse.types import DownPlan
+                                                      up_conv_plain,
+                                                      up_tiles)
+    from openscene_tpu_torch.sparse.ops import sparse_up_conv
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = []
-    for edge, (cin, cout) in ((0, (96, 96)), (1, (128, 96)), (2, (128, 128)),
-                              (3, (256, 128))):
-        plan = DownPlan(*geo.down[edge])
+    for edge, (cin, cout) in enumerate(UP_WIDTHS):
+        plan = geo.down[edge]
         child, parent = geo.levels[edge], geo.levels[edge + 1]
         x = torch.randn((parent.cap, cin), generator=gen, device="cuda")
         x[parent.num:] = 0
@@ -585,6 +633,7 @@ def up_kernel_phase(geo):
             (2.0 / (8 * cout)) ** 0.5
         out = up_conv_fwd(x, w, plan)
         ref = up_conv_plain(x, w, plan)
+        again = up_conv_fwd(x, w, plan)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = BF16_ULP * ref.float().abs().max().item()
@@ -593,31 +642,38 @@ def up_kernel_phase(geo):
                                  f"max|kernel-plain| {err} > {tol}")
         if out[child.num:].any():
             raise AssertionError("up_conv_fwd: padded child rows not zero")
-        # bytes: parent rows read, child rows written, child_parent,
-        # child_offset and the grouped index, the weights; operations: one
-        # product per valid child
+        if not torch.equal(out, again):
+            raise AssertionError(f"up_conv_fwd edge {edge}: two launches "
+                                 "differ")
+        # bytes: parent rows read, child rows written, the grouped child
+        # index and child_parent, the weights; operations: one product per
+        # valid child
         nbytes = (parent.num * cin + child.num * cout) * 2 \
-            + 3 * child.num * 4 + 8 * cin * cout * 2
+            + 2 * child.num * 4 + 8 * cin * cout * 2
         flops = 2.0 * child.num * cin * cout
         t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
         wb = w.to(torch.bfloat16)
-        grouped = group_children(plan.child_offset)
+        tiles = up_tiles(child.cap, cin, cout)
         cases.append({
             "shape": f"edge {edge} K=8 {cin}->{cout} parent rows "
                      f"{parent.cap} (valid {parent.num}), child rows "
-                     f"{child.cap} (valid {child.num})",
-            "max_abs_err": err, "tol": tol,
+                     f"{child.cap} (valid {child.num}), tiles (bn, tpb) "
+                     f"{tiles}",
+            "max_abs_err": err, "tol": tol, "deterministic": True,
             "ms": device_ms(lambda: up_conv_fwd(x, w, plan)),
             "host_ms": cuda_time_ms(lambda: up_conv_fwd(x, w, plan)),
             "plain_ms": device_ms(lambda: up_conv_plain(x, w, plan),
                                   iters=5),
-            "library_ms": device_ms(
-                lambda: up_conv_dense_fwd(x, w, plan), iters=5),
-            # the launch alone and the grouping alone (both inside "ms")
+            "library_ms": device_ms(lambda: sparse_up_conv(x, w, plan),
+                                    iters=5),
+            "library_host_ms": cuda_time_ms(
+                lambda: sparse_up_conv(x, w, plan), iters=5),
+            # the launch alone (inside "ms"), and the groups' build alone,
+            # done once per batch with the plans (not inside "ms")
             "launch_only_ms": device_ms(lambda: launch_up_conv(
-                x, wb, plan.child_parent, *grouped)),
-            "grouping_ms": device_ms(
-                lambda: group_children(plan.child_offset)),
+                x, wb, plan.child_parent, plan.groups, *tiles)),
+            "groups_build_ms": device_ms(lambda: build_edge_groups(
+                plan.child_offset, child.num)),
             "bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations"})
     return cases
@@ -700,12 +756,14 @@ def profile_device(fn, what):
 
 
 def conv_kernel_ms(rows):
-    """{kernel: (launches, device ms)} of the two stencil sources' kernels
-    in a profile (the offset groups' and the row splits' partial sums have
-    a reduce each)."""
+    """{kernel: (launches, device ms)} of the two gather-GEMM sources'
+    kernels in a profile (the offset groups' and the row splits' partial
+    sums have a reduce each; they also run the up conv's dx and dW) and of
+    kernel 5."""
     out = {}
     for name in ("gather_gemm_fwd_kernel", "reduce_groups_kernel",
-                 "gather_wgrad_kernel", "reduce_partials_kernel"):
+                 "gather_wgrad_kernel", "reduce_partials_kernel",
+                 "up_conv_fwd_kernel"):
         hit = [r for r in rows if name in r[2]]
         out[name] = (sum(r[1] for r in hit), sum(r[0] for r in hit))
     return out
@@ -753,6 +811,7 @@ def plain_path():
              (stencil_conv, "stencil_conv_bwd", bwd_plain),
              (edge_conv, "down_conv_fwd", edge_conv.down_conv_plain),
              (edge_conv, "down_conv_bwd", edge_conv.down_conv_bwd_plain),
+             (edge_conv, "up_conv_fwd", edge_conv.up_conv_plain),
              (edge_conv, "up_conv_bwd", edge_conv.up_conv_bwd_plain)]
 
     @contextlib.contextmanager
@@ -806,6 +865,7 @@ def expected(counts):
 
 TRAIN_LAUNCHES = {"stencil_conv_fwd": STENCILS_PER_FORWARD,
                   "down_conv_fwd": DOWNS_PER_FORWARD,
+                  "up_conv_fwd": UPS_PER_FORWARD,
                   "stencil_conv_bwd": STENCILS_PER_FORWARD,
                   "down_conv_bwd": DOWNS_PER_FORWARD,
                   "up_conv_bwd": UPS_PER_FORWARD}
@@ -1098,8 +1158,12 @@ def main():
                      else "")
                   + (", bit-equal" if name == "pack_pairs_t" else
                      f", max err {c['max_abs_err']:.3e}")
-                  + (f", launch alone {c['launch_only_ms']:.4f}, grouping "
-                     f"alone {c['grouping_ms']:.4f}" if "grouping_ms" in c
+                  + (f", launch alone {c['launch_only_ms']:.4f}, groups' "
+                     f"build alone {c['groups_build_ms']:.4f}"
+                     if "groups_build_ms" in c else "")
+                  + (f", dx alone {c['dx_ms']:.4f}, dW alone "
+                     f"{c['dw_ms']:.4f}, PR 4's dense design "
+                     f"{c['replaced_ms']:.4f}" if "replaced_ms" in c
                      else "")
                   + (f", dW err {c['dw_max_abs_err']:.3e} of tol "
                      f"{c['dw_tol']:.3e}" if "dw_tol" in c else "")
@@ -1120,7 +1184,8 @@ def main():
         dt = time.time() - t0
         got = read_counts()
         want = expected(dict(stencil_conv_fwd=STENCILS_PER_FORWARD * N_SCENES,
-                             down_conv_fwd=DOWNS_PER_FORWARD * N_SCENES))
+                             down_conv_fwd=DOWNS_PER_FORWARD * N_SCENES,
+                             up_conv_fwd=UPS_PER_FORWARD * N_SCENES))
         if got != want:
             raise AssertionError(f"{mode}: launches {got}, want {want}")
         if not np.isfinite(res["miou"]):
@@ -1175,21 +1240,21 @@ def main():
         busy, prow = profile_device(fn, what)
         if busy:
             conv = conv_kernel_ms(prow)
+            gemm = sum(v[1] for k, v in conv.items()
+                       if k != "up_conv_fwd_kernel")
             print(f"profiler[{what}]: device busy {busy:.3f} ms in the "
                   f"profiled train step (unprofiled step "
-                  f"{t_step * 1e3:.1f} ms, {int(praw.num)} voxels); stencil "
-                  f"sources {json.dumps(conv)} (launches, ms): "
-                  f"{sum(v[1] for v in conv.values()):.3f} ms against the "
+                  f"{t_step * 1e3:.1f} ms, {int(praw.num)} voxels); conv "
+                  f"kernels {json.dumps(conv)} (launches, ms): the two "
+                  f"gather-GEMM sources {gemm:.3f} ms against the "
                   f"dense design's {DENSE_DESIGN_TRAIN_CONV_MS[0]} + "
                   f"{DENSE_DESIGN_TRAIN_CONV_MS[1]} ms [{card}]", flush=True)
     compare_train_step(trainer, host_batch)
 
-    # ---- 5. the per-op benchmark on the train batch: kernel 5's path ----
-    zero_counts()
+    # ---- 5. the per-op benchmark on the train batch ----
     t0 = time.time()
     bench = bench_ops(praw.coords, int(praw.num), n_scenes=TRAIN_BATCH,
                       iters=BENCH_ITERS)
-    main_launches["up_conv_fwd"] = read_counts()["up_conv_fwd"]
     for row in bench:
         print(f"bench_ops: {json.dumps(row)} [{card}]", flush=True)
     print(f"bench_ops: {len(bench)} rows in {time.time() - t0:.1f}s",
@@ -1213,13 +1278,11 @@ def main():
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
             "shapes": shapes}
-        if name in ("stencil_conv_fwd", "down_conv_fwd"):
+        if name in ("stencil_conv_fwd", "down_conv_fwd", "up_conv_fwd"):
             entry["launches_per_forward"] = (
                 launches[name] - train_launches[name]) / forwards
         elif name in main_launches:
-            entry["main_path"] = ("scripts/dev_bench_ops.py:bench_ops"
-                                  if name == "up_conv_fwd" else
-                                  "scripts/dev_pack_bench.py:bench_pack")
+            entry["main_path"] = "scripts/dev_pack_bench.py:bench_pack"
         else:
             entry["also_launches"] = FWD_SOURCE + " (dx)"
         kernels.append(entry)

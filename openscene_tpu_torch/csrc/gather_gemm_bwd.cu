@@ -16,8 +16,11 @@
 //       dW[flip k] = x^T @ G_k             this kernel, a = x, b = g, idx = fwd
 //   * openscene_tpu/sparse/pallas_edge.py:374 make_down_bwd_kernel (up-conv
 //     backward over parents, op _up_bwd_core :795-834):
-//       dx[p] = sum_k g[fwd[k,p]] @ W[k]^T gather_gemm_fwd(g, W^T, down.fwd)
-//       dW[k] = x^T @ g[fwd[k]]            this kernel, a = x_parent, b = g_child
+//       dx[p] = sum_k g[fwd[k,p]] @ W[k]^T gather_gemm_fwd(g, W, down.fwd,
+//                                          the edge's skip plan, w_nk)
+//       dW[k] = sum over the children c of offset k of x[parent(c)]^T g[c]
+//                                          this kernel in group mode, a =
+//                                          x_parent, b = g_child
 //   * openscene_tpu/sparse/pallas_edge.py:522 make_up_bwd_kernel (down-conv
 //     backward over children, op _down_conv_bwd :727-756):
 //       dx[c] = g[parent(c)] @ W[offset(c)]^T
@@ -40,7 +43,12 @@
 //   * Skip mode (a ConvSkip of the plan, K <= 31): offset k reduces only
 //     over its compacted rows pair_rows[k][0 .. pair_count[k]), the rows
 //     whose neighbour exists, so no missing pair is gathered or multiplied.
-//     Dense mode (no skip plan, the K = 8 edges): every row.
+//     Group mode (the up conv, an EdgeGroups of the edge and amap =
+//     child_parent): offset k reduces over its own children, the segment
+//     of pair_rows that starts at seg_tile * sum_{j<k} ceil(pair_count[j] /
+//     seg_tile); each entry is b's row (the child) and amap of it a's row
+//     (the parent), so only the pairs that exist are read.  Dense mode (no
+//     skip plan, the down conv's edges): every row.
 //   * Grid (Ca tile x Cb tile, k, split).  Split s covers pair positions
 //     [s*per, (s+1)*per) of its offset; the splits are sized on the host
 //     from a bound on every count (the level's rows), so no count is read
@@ -82,8 +90,9 @@ gather_wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                     const int32_t* __restrict__ idx,
                     const int32_t* __restrict__ pair_rows,
                     const int32_t* __restrict__ pair_count,
+                    const int32_t* __restrict__ amap,
                     float* __restrict__ dst, int rows, int K, int ca, int cb,
-                    int per, int tiles_b, int bma, int bnb) {
+                    int per, int tiles_b, int bma, int bnb, int seg_tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nthreads = blockDim.x;
   const int tid = threadIdx.x;
@@ -106,7 +115,12 @@ gather_wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
   bf16* Bs = As + STAGES * BR * lda;
   int* ra = reinterpret_cast<int*>(Bs + STAGES * BR * ldb);  // a row
   int* rb = ra + IDXN;                                         // b row
-  const int32_t* idx_k = idx + (size_t)k * rows;
+  const int32_t* idx_k = amap ? nullptr : idx + (size_t)k * rows;
+  // group mode: where offset k's segment starts
+  int seg0 = 0;
+  if (amap)
+    for (int j = 0; j < k; ++j)
+      seg0 += (pair_count[j] + seg_tile - 1) / seg_tile * seg_tile;
 
   float acc[2][4][4];
   gg::zero_acc(acc);
@@ -118,9 +132,15 @@ gather_wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
     __syncthreads();  // the previous chunk's ring and indices are consumed
     for (int v = tid; v < n_c; v += nthreads) {
       const int p = c_begin + v;
-      const int r = pair_rows ? pair_rows[(size_t)k * rows + p] : p;
-      ra[v] = r;
-      rb[v] = idx_k[r];
+      if (amap) {
+        const int c = pair_rows[seg0 + p];
+        ra[v] = amap[c];
+        rb[v] = c;
+      } else {
+        const int r = pair_rows ? pair_rows[(size_t)k * rows + p] : p;
+        ra[v] = r;
+        rb[v] = idx_k[r];
+      }
     }
     __syncthreads();
     const int steps = (n_c + BR - 1) / BR;
@@ -226,17 +246,22 @@ int ensure_smem(size_t bytes) {
 
 }  // namespace
 
-// pair_rows, pair_count: the skip plan, or both null (dense).  part:
+// pair_rows, pair_count: the skip plan, or both null (dense); with amap
+// (group mode) the groups' rows and counts, segments padded to seg_tile,
+// and idx unused.  rows: a's rows, a bound on every offset's pairs.  part:
 // (splits, K, ca, cb) fp32 scratch, unused when splits == 1.  bma, bnb:
 // multiples of 32, (bma/32)*(bnb/32) <= 16 warps.
 extern "C" int gather_wgrad_bf16(const void* a, const void* b, const void* idx,
                                  const void* pair_rows, const void* pair_count,
-                                 void* part, void* out, int rows, int K,
-                                 int ca, int cb, int bma, int bnb, int per,
-                                 int splits, void* stream) {
+                                 const void* amap, void* part, void* out,
+                                 int rows, int K, int ca, int cb, int bma,
+                                 int bnb, int per, int splits, int seg_tile,
+                                 void* stream) {
   const int threads = (bma / 32) * (bnb / 32) * 32;
   if (bma <= 0 || bnb <= 0 || bma % 32 || bnb % 32 || threads > MAX_THREADS ||
-      per <= 0 || splits <= 0)
+      per <= 0 || splits <= 0 ||
+      (amap && (!pair_rows || !pair_count || seg_tile <= 0)) ||
+      (!amap && !idx))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = (size_t)STAGES * BR * (bma + 8 + bnb + 8) * 2 +
@@ -251,8 +276,9 @@ extern "C" int gather_wgrad_bf16(const void* a, const void* b, const void* idx,
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
       static_cast<const int32_t*>(idx),
       static_cast<const int32_t*>(pair_rows),
-      static_cast<const int32_t*>(pair_count), dst, rows, K, ca, cb, per,
-      tiles_b, bma, bnb);
+      static_cast<const int32_t*>(pair_count),
+      static_cast<const int32_t*>(amap), dst, rows, K, ca, cb, per, tiles_b,
+      bma, bnb, seg_tile);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n = (size_t)K * ca * cb;

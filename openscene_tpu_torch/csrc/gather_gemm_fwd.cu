@@ -2,9 +2,10 @@
 //
 //   out[r, :] = sum_{k < K} x[idx[k, r], :] @ W[k]        r in [0, rows_out)
 //
-// x: (rows_in, Cin) bf16 row-major; W: (K, Cin, Cout) bf16; idx: (K, rows_out)
-// int32; out: (rows_out, Cout) bf16.  Products accumulate in fp32 and the sum
-// is rounded to bf16 once.
+// x: (rows_in, Cin) bf16 row-major; W: (K, Cin, Cout) bf16, or with w_nk
+// (K, Cout, Cin), each W[k] then read as the transpose of what is stored;
+// idx: (K, rows_out) int32; out: (rows_out, Cout) bf16.  Products accumulate
+// in fp32 and the sum is rounded to bf16 once.
 //
 // Replaces two Pallas TPU kernels of the JAX package, which compute this same
 // function:
@@ -15,7 +16,9 @@
 //     down-conv forward (K = 8, idx = DownPlan.fwd, rows_out = parent_cap).
 // The same kernel computes the input gradient dx of every conv backward, on
 // the cotangent with transposed weights (csrc/gather_gemm_bwd.cu lists the
-// three forms).  The TPU kernels' row windows, window plans, 128-lane
+// three forms); the up conv's dx reads the forward's W with w_nk, and the
+// edge's skip plan (sparse/types.py:EdgeSkip, parents sorted by which
+// children they hold) in place of a ConvSkip.  The TPU kernels' row windows, window plans, 128-lane
 // crossbar gathers, bf16 pair packing and spill lists exist for the TPU's
 // memory system and are not carried over: this kernel reads the plain index
 // plan, and a missing neighbour points into the all-zero padding rows
@@ -76,6 +79,10 @@ constexpr int STAGES = 4;        // cp.async ring depth
 constexpr int MAX_THREADS = 512;
 constexpr int LDA = BK + 8;      // padded row stride of the gathered tile
 
+// W_NK: W[k] stored (cout, cin) and read transposed.  A template argument:
+// as a runtime flag it slowed the plain layout's stencil forward by about
+// 30% at L0 on an H100 (PERF.md, PR 5).
+template <bool W_NK>
 __global__ void __launch_bounds__(MAX_THREADS)
 gather_gemm_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                        const int32_t* __restrict__ idx,
@@ -100,7 +107,9 @@ gather_gemm_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + STAGES * bm * LDA;
-  int* srow = reinterpret_cast<int*>(Bs + STAGES * BK * ldb);  // out row
+  // a stage of B: BK x bn (stride ldb), or bn x BK (stride LDA) with W_NK
+  const int b_stage = W_NK ? bn * LDA : BK * ldb;
+  int* srow = reinterpret_cast<int*>(Bs + STAGES * b_stage);  // out row
   int* snbr = srow + bm;                                        // its mask
   int* klist = snbr + bm;                                       // offsets
   int* s_nact = klist + K;
@@ -163,7 +172,7 @@ gather_gemm_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const int c0 = (it - a * n_chunks) * BK;
     const int k = klist[a0 + a];
     bf16* as = As + slot * bm * LDA;
-    bf16* bs = Bs + slot * BK * ldb;
+    bf16* bs = Bs + slot * b_stage;
     const int* si = sidx + a * bm;
     const int32_t* idx_k = idx + (size_t)k * rows_out;
     for (int v = tid; v < bm * (BK / 8); v += nthreads) {
@@ -174,13 +183,24 @@ gather_gemm_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       gg::cp_async16(as + j * LDA + cc,
                      ok ? x + (size_t)s * cin + c0 + cc : x, ok);
     }
-    for (int v = tid; v < BK * vpr; v += nthreads) {
-      const int i = v / vpr;
-      const int nn = (v - i * vpr) * 8;
-      const bool ok = c0 + i < cin && n0 + nn < cout;
-      gg::cp_async16(bs + i * ldb + nn,
-                     ok ? w + ((size_t)k * cin + c0 + i) * cout + n0 + nn : w,
-                     ok);
+    if constexpr (W_NK) {  // stage row n: 32 reduction entries of column n
+      for (int v = tid; v < bn * (BK / 8); v += nthreads) {
+        const int n = v >> 2;
+        const int cc = (v & 3) * 8;
+        const bool ok = n0 + n < cout && c0 + cc < cin;
+        gg::cp_async16(
+            bs + n * LDA + cc,
+            ok ? w + ((size_t)k * cout + n0 + n) * cin + c0 + cc : w, ok);
+      }
+    } else {
+      for (int v = tid; v < BK * vpr; v += nthreads) {
+        const int i = v / vpr;
+        const int nn = (v - i * vpr) * 8;
+        const bool ok = c0 + i < cin && n0 + nn < cout;
+        gg::cp_async16(
+            bs + i * ldb + nn,
+            ok ? w + ((size_t)k * cin + c0 + i) * cout + n0 + nn : w, ok);
+      }
     }
   };
 
@@ -195,7 +215,7 @@ gather_gemm_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     if (it + STAGES - 1 < total) load(it + STAGES - 1);
     gg::cp_async_commit();
     const bf16* as = As + (it % STAGES) * bm * LDA;
-    const bf16* bs = Bs + (it % STAGES) * BK * ldb + wn * 32;
+    const bf16* bs = Bs + (it % STAGES) * b_stage;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       unsigned af[2][4], bfr[2][4];
@@ -203,7 +223,10 @@ gather_gemm_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int i = 0; i < 2; ++i)
         gg::ldsm_x4(af[i], as + (wm * 32 + i * 16 + (lane & 15)) * LDA + kk +
                                (lane >> 4) * 8);
-      gg::load_b(bfr, bs + kk * ldb, ldb, lane);
+      if constexpr (W_NK)
+        gg::load_b_nk(bfr, bs + wn * 32 * LDA + kk, LDA, lane);
+      else
+        gg::load_b(bfr, bs + kk * ldb + wn * 32, ldb, lane);
       gg::mma_tile(acc, af, bfr);
     }
   }
@@ -250,14 +273,37 @@ __global__ void reduce_groups_kernel(const float2* __restrict__ part,
 }
 
 // the dynamic shared memory a launch needs; raised once per size
+template <bool W_NK>
 int ensure_smem(size_t bytes) {
   static size_t allowed = 48 * 1024;
   if (bytes <= allowed) return 0;
   const cudaError_t err = cudaFuncSetAttribute(
-      gather_gemm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      gather_gemm_fwd_kernel<W_NK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err == cudaSuccess) allowed = bytes;
   return static_cast<int>(err);
+}
+
+template <bool W_NK>
+int launch(const void* x, const void* w, const void* idx, const void* order,
+           const void* tile_mask, const void* nbr_mask, void* part, void* out,
+           int rows_out, int K, int cin, int cout, int bm, int bn,
+           int tile_rows, int groups, cudaStream_t st) {
+  const int threads = (bm / 32) * (bn / 32) * 32;
+  const int b_stage = W_NK ? bn * LDA : BK * (bn + 8);
+  const size_t smem = (size_t)STAGES * (bm * LDA + b_stage) * 2 +
+                      (size_t)(2 * bm + K + 2 + (nbr_mask ? K * bm : 0)) * 4;
+  const int err = ensure_smem<W_NK>(smem);
+  if (err) return err;
+  const dim3 grid((rows_out + bm - 1) / bm, (cout + bn - 1) / bn, groups);
+  gather_gemm_fwd_kernel<W_NK><<<grid, threads, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(order),
+      static_cast<const int32_t*>(tile_mask),
+      static_cast<const int32_t*>(nbr_mask), static_cast<bf16*>(out),
+      groups > 1 ? static_cast<float*>(part) : nullptr, rows_out, K, cin,
+      cout, bm, bn, tile_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -266,32 +312,27 @@ int ensure_smem(size_t bytes) {
 // bm, bn: multiples of 32, (bm/32)*(bn/32) <= 16 warps; tile_rows divides bm.
 // groups > 1 splits each tile's offsets over that many blocks, whose fp32
 // partials go to part (groups, rows_out, cout) and are added in order.
+// w_nk: w is (K, cout, cin), each W[k] read transposed.
 extern "C" int gather_gemm_fwd_bf16(const void* x, const void* w,
                                     const void* idx, const void* order,
                                     const void* tile_mask,
                                     const void* nbr_mask, void* part,
                                     void* out, int rows_out, int K, int cin,
                                     int cout, int bm, int bn, int tile_rows,
-                                    int groups, void* stream) {
+                                    int groups, int w_nk, void* stream) {
   const int threads = (bm / 32) * (bn / 32) * 32;
   if (bm <= 0 || bn <= 0 || bm % 32 || bn % 32 || threads > MAX_THREADS ||
       tile_rows <= 0 || bm % tile_rows || (tile_mask && K > 31) ||
       groups < 1 || groups > 64 || (groups > 1 && !part))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)STAGES * (bm * LDA + BK * (bn + 8)) * 2 +
-                      (size_t)(2 * bm + K + 2 + (nbr_mask ? K * bm : 0)) * 4;
-  int err = ensure_smem(smem);
-  if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((rows_out + bm - 1) / bm, (cout + bn - 1) / bn, groups);
-  gather_gemm_fwd_kernel<<<grid, threads, smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(order),
-      static_cast<const int32_t*>(tile_mask),
-      static_cast<const int32_t*>(nbr_mask), static_cast<bf16*>(out),
-      groups > 1 ? static_cast<float*>(part) : nullptr, rows_out, K, cin,
-      cout, bm, bn, tile_rows);
-  err = static_cast<int>(cudaGetLastError());
+  const int err =
+      w_nk ? launch<true>(x, w, idx, order, tile_mask, nbr_mask, part, out,
+                          rows_out, K, cin, cout, bm, bn, tile_rows, groups,
+                          st)
+           : launch<false>(x, w, idx, order, tile_mask, nbr_mask, part, out,
+                           rows_out, K, cin, cout, bm, bn, tile_rows, groups,
+                           st);
   if (err || groups == 1) return err;
   const size_t n = (size_t)rows_out * cout / 2;
   reduce_groups_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(

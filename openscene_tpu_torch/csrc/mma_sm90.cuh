@@ -1,5 +1,5 @@
 // Building blocks shared by the gather-GEMM kernels (csrc/gather_gemm_fwd.cu,
-// csrc/gather_gemm_bwd.cu), for Hopper (sm_90a):
+// csrc/gather_gemm_bwd.cu, csrc/up_conv_fwd.cu), for Hopper (sm_90a):
 //   * cp.async 16-byte copies from global to shared memory that fill zeros
 //     when the predicate is false (no global read then), grouped and waited
 //     on as a ring of stages;
@@ -72,6 +72,18 @@ __device__ __forceinline__ void load_b(unsigned (&b)[2][4],
 #pragma unroll
   for (int j = 0; j < 2; ++j)
     ldsm_x4_t(b[j], bs + (lane & 15) * ldb + j * 16 + (lane >> 4) * 8);
+}
+
+// the same fragments from a 32-column slab stored n-major (row n = output
+// column, the reduction index contiguous, stride ldb elements): B read as
+// the transpose of what is stored, with no transposed copy
+__device__ __forceinline__ void load_b_nk(unsigned (&b)[2][4],
+                                          const __nv_bfloat16* bs, int ldb,
+                                          int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    ldsm_x4(b[j], bs + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldb +
+                      ((lane >> 3) & 1) * 8);
 }
 
 // acc[i][t] += A(rows i*16.., 16) * B(16, columns t*8..)

@@ -15,162 +15,498 @@
 // so it does 8x the products.  This kernel multiplies each child row once,
 // by its own weight.
 //
-// Design (simple and correct first): the wrapper (sparse/edge_conv.py:
-// up_conv_fwd) groups the child rows by offset with a stable sort into 8
-// segments, each padded to a multiple of 64 rows, and passes the grouped
-// child indices (tile_rows, -1 in the padding) and each 64-row tile's offset
-// (tile_k, -1 past the last segment).  One block of 4 warps takes one tile
-// and one 64-column slab of Cout: it gathers the tile's parent rows through
-// child_parent into shared memory 32 channels at a time (16-byte loads, so
-// Cin and Cout are multiples of 8), stages W[k]'s 32 x 64 chunk beside
-// them, runs 2 x 2 WMMA 16x16x16 bf16 products (mma.sync) per warp into
-// fp32 fragments, and writes each row to its child position.  Every child
-// lies in exactly one tile, so each output row is written once: no atomics,
-// and the result does not depend on the order of the blocks.  A padded child
-// row points at a zero padding parent with offset 0, so its output is
-// exactly 0.  Cout = 96 takes a full and a half-masked 64-column slab.
-//
 // Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16), per call:
-//   bytes = parent rows read once (parent_cap*Cin*2) + child rows written
-//           (child_cap*Cout*2) + child_parent, child_offset and the grouped
-//           index (3 x child_cap x 4) + W (8*Cin*Cout*2)
-//   flops = 2*child_rows*Cin*Cout
-// i.e. about Cin*Cout/(Cout + 6) flop per byte, under 100 for every edge of
+//   bytes = parent rows read once (parent_num*Cin*2) + child rows written
+//           (child_num*Cout*2) + the grouped child index and child_parent
+//           (2 x child_num x 4) + W (8*Cin*Cout*2)
+//   flops = 2*child_num*Cin*Cout
+// i.e. about Cin*Cout/(Cout + 4) flop per byte, under 100 for every edge of
 // MinkUNet18A (Cin, Cout <= 256): bound by bytes.
+//
+// Design.
+//   * The rows come grouped: the edge's EdgeGroups (sparse/types.py, built
+//     once per batch with the plans) hold the valid children stably sorted
+//     by offset, each offset's segment padded with -1 to a multiple of
+//     BM = 64 rows, and each 64-row tile's offset (tile_k, -1 past the last
+//     segment).  Every tile's rows share one W[k].
+//   * Block b takes tpb consecutive tiles and one bn-column slab of Cout
+//     (bn a multiple of 32 fitted to Cout, so Cout = 96 is one slab; bn and
+//     tpb from sparse/edge_conv.py:up_tiles).  For
+//     each run of its tiles with one offset it stages W[k]'s whole Cin x bn
+//     slab in shared memory once, then streams the tiles' gathered parent
+//     rows, 32 channels a step, through a 4-stage cp.async ring of 16-byte
+//     copies; ldmatrix + mma.sync m16n8k16 (fp32 accumulators), one warp
+//     per 32 x 32 sub-tile.  The child and parent indices of all its tiles
+//     are read into shared memory before the ring starts.
+//   * Each tile's rows are rounded once, staged in shared memory and
+//     written to their children as 16-byte vectors, a row's slab by
+//     neighbouring threads: the scattered child rows made the direct
+//     4-byte stores from the mma fragments the kernel's bottleneck (about
+//     40% of its time at MinkUNet18A's edge 0 on an H100).  A valid child
+//     lies in exactly one tile and the padded children (rows [num,
+//     child_cap), num = sum of the groups' counts) are written zero, spread
+//     over all blocks: every output row is written once, no atomics, and
+//     the result is the same bits from launch to launch.
+//   mma.sync rather than wgmma for the reason given in gather_gemm_fwd.cu:
+//   the gathered rows land in a plain padded layout.
 //
 // The launcher allocates nothing, runs on the caller's stream, does not
 // synchronise, and returns cudaGetLastError() of the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstdint>
+#include "mma_sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using bf16 = __nv_bfloat16;
 
-constexpr int BM = 64;        // child rows per tile
-constexpr int BN = 64;        // output columns per block
-constexpr int BK = 32;        // Cin chunk per step
-constexpr int THREADS = 128;  // 4 warps, a 2 x 2 grid of 32 x 32 warp tiles
-constexpr int LDA = BK + 8;   // padded shared-memory strides (elements)
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;
+constexpr int BM = 64;           // child rows per tile (EdgeGroups' tile)
+constexpr int BK = 32;           // Cin chunk per pipeline step
+constexpr int STAGES = 4;        // cp.async ring depth
+constexpr int MAX_THREADS = 512;
+constexpr int LDA = BK + 8;      // padded row stride of the gathered tile
 
-__global__ void __launch_bounds__(THREADS)
-up_conv_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w,
+__global__ void __launch_bounds__(MAX_THREADS)
+up_conv_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const int32_t* __restrict__ child_parent,
-                   const int32_t* __restrict__ tile_rows,
+                   const int32_t* __restrict__ rows,
                    const int32_t* __restrict__ tile_k,
-                   __nv_bfloat16* __restrict__ out, int cin, int cout) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
-  __shared__ __align__(128) float Cs[BM * LDC];
-  __shared__ int32_t src_row[BM];
-  __shared__ int32_t dst_row[BM];
-
-  const int t = blockIdx.x;
-  const int k = tile_k[t];
-  if (k < 0) return;  // past the last segment: the whole block leaves
+                   const int32_t* __restrict__ count, bf16* __restrict__ out,
+                   int tiles, int child_cap, int cin, int cout, int bn,
+                   int tpb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nthreads = blockDim.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warps_n = bn >> 5;
+  const int wm = (tid >> 5) / warps_n;  // warp's 32-row slab
+  const int wn = (tid >> 5) % warps_n;  // warp's 32-column slab
+  const int ldb = bn + 8;
+  const int n_chunks = (cin + BK - 1) / BK;
+  const int n0 = blockIdx.y * bn;
+  const int t0 = blockIdx.x * tpb;
+  const int nt = min(tpb, tiles - t0);
+  const int vpr = bn / 8;  // 16-byte vectors per slab row
+
+  bf16* Ws = reinterpret_cast<bf16*>(smem);             // n_chunks*BK x ldb
+  bf16* As = Ws + n_chunks * BK * ldb;                  // STAGES x BM x LDA
+  bf16* Cs = As + STAGES * BM * LDA;                    // BM x ldb, the tile
+  int* sdst = reinterpret_cast<int*>(Cs + BM * ldb);           // child row
+  int* ssrc = sdst + tpb * BM;                                 // its parent
+  int* stk = ssrc + tpb * BM;                                  // tile offset
+
+  // the padded children, rows [num, child_cap), are written zero, spread
+  // over the blocks
+  {
+    int num = 0;
+    for (int j = 0; j < 8; ++j) num += count[j];
+    const long long total = (long long)(child_cap - num) * vpr;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (long long v = (long long)blockIdx.x * nthreads + tid; v < total;
+         v += (long long)gridDim.x * nthreads) {
+      const int r = num + static_cast<int>(v / vpr);
+      const int n = n0 + static_cast<int>(v % vpr) * 8;
+      if (n < cout)
+        *reinterpret_cast<uint4*>(out + (size_t)r * cout + n) = zero;
+    }
+  }
+
+  for (int v = tid; v < nt * BM; v += nthreads) {
+    const int c = rows[(size_t)t0 * BM + v];
+    sdst[v] = c;
+    ssrc[v] = c >= 0 ? child_parent[c] : -1;
+  }
+  for (int v = tid; v < nt; v += nthreads) stk[v] = tile_k[t0 + v];
+  __syncthreads();
+
+  float acc[2][4][4];
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  int t = 0;
+  while (t < nt) {
+    const int k = stk[t];
+    if (k < 0) break;  // past the last segment: so are the tiles after it
+    int te = t + 1;
+    while (te < nt && stk[te] == k) ++te;
+    const int total = (te - t) * n_chunks;
+    __syncthreads();  // the previous run is done with Ws and the ring
+
+    // W[k]'s Cin x bn slab, zero past Cin and Cout: one commit group,
+    // complete before the ring's first step is read
+    for (int v = tid; v < n_chunks * BK * vpr; v += nthreads) {
+      const int i = v / vpr;
+      const int nn = (v - i * vpr) * 8;
+      const bool ok = i < cin && n0 + nn < cout;
+      gg::cp_async16(Ws + i * ldb + nn,
+                     ok ? w + ((size_t)k * cin + i) * cout + n0 + nn : w, ok);
+    }
+    gg::cp_async_commit();
+
+    auto load = [&](int it) {
+      const int c0 = (it % n_chunks) * BK;
+      bf16* as = As + (it % STAGES) * BM * LDA;
+      const int* src = ssrc + (t + it / n_chunks) * BM;
+      for (int v = tid; v < BM * (BK / 8); v += nthreads) {
+        const int j = v >> 2;
+        const int cc = (v & 3) * 8;
+        const int s = src[j];
+        const bool ok = s >= 0 && c0 + cc < cin;
+        gg::cp_async16(as + j * LDA + cc,
+                       ok ? x + (size_t)s * cin + c0 + cc : x, ok);
+      }
+    };
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < total) load(s);
+      gg::cp_async_commit();
+    }
+    gg::zero_acc(acc);
+    for (int it = 0; it < total; ++it) {
+      gg::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (it + STAGES - 1 < total) load(it + STAGES - 1);
+      gg::cp_async_commit();
+      const int chunk = it % n_chunks;
+      const bf16* as = As + (it % STAGES) * BM * LDA;
+      const bf16* bs = Ws + chunk * BK * ldb + wn * 32;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        unsigned af[2][4], bfr[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          gg::ldsm_x4(af[i], as + (wm * 32 + i * 16 + (lane & 15)) * LDA +
+                                 kk + (lane >> 4) * 8);
+        gg::load_b(bfr, bs + kk * ldb, ldb, lane);
+        gg::mma_tile(acc, af, bfr);
+      }
+      if (chunk == n_chunks - 1) {
+        // the tile is complete: each row rounded to bf16 once, staged, and
+        // written to its child 16 bytes a thread
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  Cs + (wm * 32 + i * 16 + g + h * 8) * ldb + wn * 32 +
+                  q * 8 + tq * 2) =
+                  __floats2bfloat162_rn(acc[i][q][2 * h],
+                                        acc[i][q][2 * h + 1]);
+        __syncthreads();
+        const int* dst = sdst + (t + it / n_chunks) * BM;
+        for (int v = tid; v < BM * vpr; v += nthreads) {
+          const int j = v / vpr;
+          const int nn = (v - j * vpr) * 8;
+          const int c = dst[j];
+          if (c >= 0 && n0 + nn < cout)
+            *reinterpret_cast<uint4*>(out + (size_t)c * cout + n0 + nn) =
+                *reinterpret_cast<const uint4*>(Cs + j * ldb + nn);
+        }
+        gg::zero_acc(acc);
+      }
+    }
+    gg::cp_async_wait<0>();
+    t = te;
+  }
+}
+
+// ---- The up-conv backward as one fused launch over the children, the
+// design the JAX kernel (pallas_edge.py:374) takes, measured against the two
+// skipping launches (scripts/dev_up_tiles.py).  Block (j, k) walks tiles
+// [j*tpb, (j+1)*tpb) of offset k's segment of the groups: it gathers each
+// tile's cotangent rows g[c] (64 x Cout) and parent rows x[parent(c)]
+// (64 x Cin) once, writes y[c] = g[c] @ W[k]^T (fp32, each child's share of
+// its parent's dx) and adds x^T g to its fp32 dW[k] partial in registers.
+// Two reduces follow: dx[p] = sum over the offsets p holds, in order, of
+// y[fwd[k, p]], rounded once; dW[k] = the block partials in order.  Cin and
+// Cout multiples of 32, at most 256.
+
+__global__ void __launch_bounds__(MAX_THREADS)
+up_bwd_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                    const bf16* __restrict__ w,
+                    const int32_t* __restrict__ child_parent,
+                    const int32_t* __restrict__ rows,
+                    const int32_t* __restrict__ count, float* __restrict__ y,
+                    float* __restrict__ dw_part, int cin, int cout, int tpb,
+                    int chunks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int k = blockIdx.y;
+  const int j = blockIdx.x;
+  int seg0 = 0;  // offset k's segment: first tile, tiles
+  for (int q = 0; q < k; ++q) seg0 += (count[q] + BM - 1) / BM;
+  const int seg_tiles = (count[k] + BM - 1) / BM;
+  const int t_begin = j * tpb;
+  if (t_begin >= seg_tiles) return;  // its partial is never read
+  const int nt = min(seg_tiles, t_begin + tpb) - t_begin;
+  const int nthreads = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = warp >> 1;  // warp's 32-row slab
-  const int wn = warp & 1;   // warp's 32-column slab
-  const int n0 = blockIdx.y * BN;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int nwarps = nthreads >> 5;
+  const int ldx = cin + 8;
+  const int ldg = cout + 8;
+  const int cw = cin / 32;   // 32-column slabs of Cin
+  const int ow = cout / 32;  // 32-column slabs of Cout
 
-  if (tid < BM) {
-    const int c = tile_rows[(size_t)t * BM + tid];
-    dst_row[tid] = c;
-    src_row[tid] = c >= 0 ? child_parent[c] : -1;
+  bf16* Ws = reinterpret_cast<bf16*>(smem);  // cin x ldg: W[k]
+  bf16* Gs = Ws + cin * ldg;                 // 2 x BM x ldg
+  bf16* Xs = Gs + 2 * BM * ldg;              // 2 x BM x ldx
+  int* sc = reinterpret_cast<int*>(Xs + 2 * BM * ldx);  // child rows
+  int* sp = sc + tpb * BM;                              // their parents
+
+  for (int v = tid; v < nt * BM; v += nthreads) {
+    const int c = rows[(size_t)(seg0 + t_begin) * BM + v];
+    sc[v] = c;
+    sp[v] = c >= 0 ? child_parent[c] : -1;
   }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int v = tid; v < cin * (cout / 8); v += nthreads) {
+    const int i = v / (cout / 8);
+    const int o = (v - i * (cout / 8)) * 8;
+    gg::cp_async16(Ws + i * ldg + o, w + ((size_t)k * cin + i) * cout + o,
+                   true);
+  }
   __syncthreads();
 
-  const __nv_bfloat16* wk = w + (size_t)k * cin * cout;
-  for (int c0 = 0; c0 < cin; c0 += BK) {
-    // gathered A tile: BM parent rows x BK channels, 8 channels per vector
-    for (int v = tid; v < BM * (BK / 8); v += THREADS) {
-      const int i = v / (BK / 8);
-      const int cc = (v % (BK / 8)) * 8;
-      const int src = src_row[i];
-      uint4 val = zero;
-      if (src >= 0 && c0 + cc < cin)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)src * cin + c0 + cc);
-      *reinterpret_cast<uint4*>(&As[i * LDA + cc]) = val;
+  auto load = [&](int t) {
+    bf16* gs = Gs + (t & 1) * BM * ldg;
+    bf16* xs = Xs + (t & 1) * BM * ldx;
+    for (int v = tid; v < BM * (cout / 8); v += nthreads) {
+      const int r = v / (cout / 8);
+      const int o = (v - r * (cout / 8)) * 8;
+      const int c = sc[t * BM + r];
+      gg::cp_async16(gs + r * ldg + o, c >= 0 ? g + (size_t)c * cout + o : g,
+                     c >= 0);
     }
-    // weight tile: BK rows of W[k] x BN columns
-    for (int v = tid; v < BK * (BN / 8); v += THREADS) {
-      const int i = v / (BN / 8);
-      const int nn = (v % (BN / 8)) * 8;
-      uint4 val = zero;
-      if (c0 + i < cin && n0 + nn < cout)
-        val = *reinterpret_cast<const uint4*>(wk + (size_t)(c0 + i) * cout + n0 + nn);
-      *reinterpret_cast<uint4*>(&Bs[i * LDB + nn]) = val;
+    for (int v = tid; v < BM * (cin / 8); v += nthreads) {
+      const int r = v / (cin / 8);
+      const int i = (v - r * (cin / 8)) * 8;
+      const int p = sp[t * BM + r];
+      gg::cp_async16(xs + r * ldx + i, p >= 0 ? x + (size_t)p * cin + i : x,
+                     p >= 0);
     }
+  };
+
+  // dW tiles of this warp: d = warp and warp + nwarps (of cw * ow)
+  float accw[2][2][4][4];
+  gg::zero_acc(accw[0]);
+  gg::zero_acc(accw[1]);
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  load(0);
+  gg::cp_async_commit();
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt) load(t + 1);
+    gg::cp_async_commit();
+    gg::cp_async_wait<1>();
     __syncthreads();
+    const bf16* gs = Gs + (t & 1) * BM * ldg;
+    const bf16* xs = Xs + (t & 1) * BM * ldx;
+    // y = g @ W[k]^T: this warp's 32 x 32 tile of the 64 x Cin output
+    {
+      const int wm = warp / cw;
+      const int wn = warp % cw;
+      float acc[2][4][4];
+      gg::zero_acc(acc);
+      for (int kk = 0; kk < cout; kk += 16) {
+        unsigned af[2][4], bfr[2][4];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+        for (int i = 0; i < 2; ++i)
+          gg::ldsm_x4(af[i], gs + (wm * 32 + i * 16 + (lane & 15)) * ldg +
+                                 kk + (lane >> 4) * 8);
+        gg::load_b_nk(bfr, Ws + wn * 32 * ldg + kk, ldg, lane);
+        gg::mma_tile(acc, af, bfr);
+      }
+      const int* crow = sc + t * BM;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = crow[wm * 32 + i * 16 + gq + h * 8];
+            if (c >= 0)
+              *reinterpret_cast<float2*>(y + (size_t)c * cin + wn * 32 +
+                                         q * 8 + tq * 2) =
+                  make_float2(acc[i][q][2 * h], acc[i][q][2 * h + 1]);
+          }
+    }
+    // dW[k] += x^T g over the tile's 64 rows
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int d = warp + s * nwarps;
+      if (d >= cw * ow) continue;
+      const int dm = d / ow;
+      const int dn = d % ow;
+#pragma unroll
+      for (int kk = 0; kk < BM; kk += 16) {
+        unsigned af[2][4], bfr[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          gg::ldsm_x4_t(af[i],
+                        xs + (kk + (lane & 7) + ((lane >> 4) << 3)) * ldx +
+                            dm * 32 + i * 16 + ((lane >> 3) & 1) * 8);
+        gg::load_b(bfr, gs + kk * ldg + dn * 32, ldg, lane);
+        gg::mma_tile(accw[s], af, bfr);
+      }
+    }
+    __syncthreads();  // the next load overwrites this stage
+  }
+  gg::cp_async_wait<0>();
+
+  float* part = dw_part + ((size_t)k * chunks + j) * cin * cout;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int d = warp + s * nwarps;
+    if (d >= cw * ow) continue;
+    const int dm = d / ow;
+    const int dn = d % ow;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm * 32 + i * 16) * LDA + kk], LDA);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk * LDB + wn * 32 + j * 16], LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              part + (size_t)(dm * 32 + i * 16 + gq + h * 8) * cout +
+              dn * 32 + q * 8 + tq * 2) =
+              make_float2(accw[s][i][q][2 * h], accw[s][i][q][2 * h + 1]);
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * LDC + wn * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  // epilogue: round to bf16 once, 8 columns (16 bytes) per store, each row
-  // to its child position
-  for (int v = tid; v < BM * (BN / 8); v += THREADS) {
-    const int i = v / (BN / 8);
-    const int nn = (v % (BN / 8)) * 8;
-    const int c = dst_row[i];
-    const int n = n0 + nn;
-    if (c >= 0 && n < cout) {
-      __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(Cs[i * LDC + nn + e]);
-      *reinterpret_cast<uint4*>(out + (size_t)c * cout + n) =
-          *reinterpret_cast<const uint4*>(o);
+// dx[p] = bf16(sum over the offsets k that p holds, in order, of
+// y[fwd[k, p]]), 4 channels a thread; padded parents hold none: 0
+__global__ void up_dx_reduce_kernel(const float* __restrict__ y,
+                                    const int32_t* __restrict__ fwd,
+                                    const int32_t* __restrict__ nbr_mask,
+                                    bf16* __restrict__ dx, int parent_cap,
+                                    int cin) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int vec = cin / 4;
+  if (i >= (size_t)parent_cap * vec) return;
+  const int p = static_cast<int>(i / vec);
+  const int c4 = static_cast<int>(i % vec) * 4;
+  const int m = nbr_mask[p];
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < 8; ++k)
+    if ((m >> k) & 1) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          y + (size_t)fwd[(size_t)k * parent_cap + p] * cin + c4);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
     }
-  }
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(dx + (size_t)p * cin +
+                                                        c4);
+  o[0] = __floats2bfloat162_rn(s.x, s.y);
+  o[1] = __floats2bfloat162_rn(s.z, s.w);
+}
+
+// dw[k][i] = the used block partials of offset k, in order
+__global__ void up_dw_reduce_kernel(const float* __restrict__ part,
+                                    const int32_t* __restrict__ count,
+                                    float* __restrict__ dw, int plane,
+                                    int tpb, int chunks) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)8 * plane) return;
+  const int k = static_cast<int>(i / plane);
+  const int used = ((count[k] + BM - 1) / BM + tpb - 1) / tpb;
+  float s = 0.0f;
+  for (int j = 0; j < used; ++j)
+    s += part[((size_t)k * chunks + j) * plane + i % plane];
+  dw[i] = s;
+}
+
+int fused_smem_ok(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      up_bwd_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) allowed = bytes;
+  return static_cast<int>(err);
+}
+
+// the dynamic shared memory a launch needs; raised once per size
+int ensure_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      up_conv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) allowed = bytes;
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
+// rows, tile_k, count: the edge's EdgeGroups (tiles tiles of 64 rows).
+// bn: a multiple of 32, at most 256; tpb: tiles per block.  The shared
+// memory, ((ceil(cin/32)*32 + 64)*(bn+8) + 4*64*40)*2 + (2*tpb*64 + tpb)*4
+// bytes, must fit the card's 227 KB (sparse/edge_conv.py:up_tiles sees to
+// it).
 extern "C" int up_conv_fwd_bf16(const void* x, const void* w,
-                                const void* child_parent, const void* tile_rows,
-                                const void* tile_k, void* out, int tiles,
-                                int cin, int cout, void* stream) {
-  const dim3 grid(tiles, (cout + BN - 1) / BN);
-  up_conv_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+                                const void* child_parent, const void* rows,
+                                const void* tile_k, const void* count,
+                                void* out, int tiles, int child_cap, int cin,
+                                int cout, int bn, int tpb, void* stream) {
+  const int threads = (BM / 32) * (bn / 32) * 32;
+  if (bn <= 0 || bn % 32 || threads > MAX_THREADS || tpb <= 0 ||
+      tiles <= 0 || cin <= 0 || cin % 8 || cout <= 0 || cout % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_chunks = (cin + BK - 1) / BK;
+  const size_t smem = ((size_t)(n_chunks * BK + BM) * (bn + 8) +
+                       (size_t)STAGES * BM * LDA) * 2 +
+                      (size_t)(2 * tpb * BM + tpb) * 4;
+  const int err = ensure_smem(smem);
+  if (err) return err;
+  const dim3 grid((tiles + tpb - 1) / tpb, (cout + bn - 1) / bn);
+  up_conv_fwd_kernel<<<grid, threads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const int32_t*>(child_parent),
-      static_cast<const int32_t*>(tile_rows), static_cast<const int32_t*>(tile_k),
-      static_cast<__nv_bfloat16*>(out), cin, cout);
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(tile_k),
+      static_cast<const int32_t*>(count), static_cast<bf16*>(out), tiles,
+      child_cap, cin, cout, bn, tpb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused up-conv backward: y (child_cap, cin) and dw_part (8, chunks,
+// cin, cout) fp32 scratch; dx (parent_cap, cin) bf16; dw (8, cin, cout)
+// fp32.  chunks * tpb tiles must cover every segment (a bound: the parent
+// or child count).
+extern "C" int up_conv_bwd_fused_bf16(
+    const void* x, const void* g, const void* w, const void* child_parent,
+    const void* rows, const void* count, const void* fwd,
+    const void* nbr_mask, void* y, void* dw_part, void* dx, void* dw,
+    int parent_cap, int cin, int cout, int tpb, int chunks, void* stream) {
+  if (cin <= 0 || cout <= 0 || cin % 32 || cout % 32 || cin > 256 ||
+      cout > 256 || tpb <= 0 || chunks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = ((size_t)cin * (cout + 8) + 2 * BM * (cout + 8) +
+                       2 * BM * (cin + 8)) * 2 + (size_t)2 * tpb * BM * 4;
+  int err = fused_smem_ok(smem);
+  if (err) return err;
+  up_bwd_fused_kernel<<<dim3(chunks, 8), 2 * cin, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+      static_cast<const bf16*>(w), static_cast<const int32_t*>(child_parent),
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(count),
+      static_cast<float*>(y), static_cast<float*>(dw_part), cin, cout, tpb,
+      chunks);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const size_t n = (size_t)parent_cap * (cin / 4);
+  up_dx_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(y), static_cast<const int32_t*>(fwd),
+      static_cast<const int32_t*>(nbr_mask), static_cast<bf16*>(dx),
+      parent_cap, cin);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const size_t m = (size_t)8 * cin * cout;
+  up_dw_reduce_kernel<<<(unsigned)((m + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(dw_part), static_cast<const int32_t*>(count),
+      static_cast<float*>(dw), cin * cout, tpb, chunks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,13 +57,14 @@ def _stencil_conv(x, w, plan: ConvPlan):
 
 def _edge_down_conv(x, w, plan: DownPlan):
     """k=2 s=2 down conv: the CUDA kernels' wrappers on every edge."""
-    return DownConv.apply(x.contiguous(), w, *plan)
+    return DownConv.apply(x.contiguous(), w, plan.fwd, plan.child_parent,
+                          plan.child_offset)
 
 
 def _edge_up_conv(x, w, plan: DownPlan):
-    """k=2 s=2 up conv: dense parent GEMMs + one placement gather forward,
-    the CUDA kernels' wrapper backward."""
-    return UpConv.apply(x.contiguous(), w, *plan)
+    """k=2 s=2 up conv over the children: the CUDA kernels' wrappers on
+    every edge, with the plan's groups and skip plan."""
+    return UpConv.apply(x.contiguous(), w, plan)
 
 
 def _conv1x1(x, w):

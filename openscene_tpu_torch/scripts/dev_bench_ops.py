@@ -10,9 +10,11 @@ events, at MinkUNet18A's widths:
   plan) and through the plain versions;
 * the k=2 s=2 down convs per edge (``down_ch``), kernels and plain;
 * the up convs per edge (``up_ch``) three ways: the model's route
-  (``UpConv``: dense parent GEMMs + one gather forward, kernel 4 backward),
-  the kernel route (``KernelUpConv``: kernel 5 forward, kernel 4
-  backward) and the plain versions of both kernels;
+  (``UpConv``: kernel 5 forward, kernel 4 backward, with the edge's groups
+  and skip plan), the dense route that the JAX package's model takes
+  (``ops.sparse_up_conv``: dense parent GEMMs + one placement gather
+  forward, the same kernel 4 backward) and the plain versions of both
+  kernels;
 * the stem occupancy GEMM (125 x 3 x 32);
 * the geometry build itself.
 
@@ -36,13 +38,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..sparse.edge_conv import (KernelUpConv, UpConv, down_conv_bwd,
-                                down_conv_bwd_plain, down_conv_fwd,
-                                down_conv_plain, up_conv_bwd_plain,
-                                up_conv_plain)
+from ..sparse.edge_conv import (UpConv, down_conv_bwd, down_conv_bwd_plain,
+                                down_conv_fwd, down_conv_plain, up_conv_bwd,
+                                up_conv_bwd_plain, up_conv_plain)
 from ..sparse.geometry import _bucket, _pad_level, level_counts
 from ..sparse.geometry_device import build_geometry_parts, with_host_counts
-from ..sparse.ops import matmul_f32
+from ..sparse.ops import matmul_f32, sparse_up_conv
 from ..sparse.stencil_conv import (stencil_conv_bwd, stencil_conv_bwd_plain,
                                    stencil_conv_fwd, stencil_conv_plain)
 from .timing import card_line, time_ms
@@ -59,6 +60,23 @@ DOWN_CH = [32, 32, 64, 128]
 UP_CH = {3: (256, 128), 2: (128, 128), 1: (128, 96), 0: (96, 96)}
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+
+
+class DenseRouteUpConv(torch.autograd.Function):
+    """The JAX package model's up conv, as a yardstick: the dense route
+    forward (``ops.sparse_up_conv``), the port's kernel 4 backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, plan):
+        ctx.save_for_backward(x, w)
+        ctx.plan = plan
+        return sparse_up_conv(x, w, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = up_conv_bwd(x, w, g.contiguous(), ctx.plan)
+        return dx, dw, None
 
 
 def bench_ops(coords: np.ndarray, num: int, n_scenes: Optional[int] = None,
@@ -140,19 +158,19 @@ def bench_ops(coords: np.ndarray, num: int, n_scenes: Optional[int] = None,
         cin, cout = UP_CH[e]
         xu, gu, wu = acts(e + 1, cin), acts(e, cout), weights(8, cin, cout)
         xg = xu.detach().requires_grad_()
-        args = (wu, *plan)
 
         def fb(fn):
             def run():
-                fn.apply(xg, *args).backward(gu)
+                fn.apply(xg, wu, plan).backward(gu)
             return run
 
         b = (xu, wu, gu, plan)
         rows.append({"op": f"E{e} up", "shape": f"{cin}x{cout}",
-                     **timed(model_f=lambda: UpConv.apply(xu, *args),
+                     **timed(model_f=lambda: UpConv.apply(xu, wu, plan),
                              model_fb=fb(UpConv),
-                             kernel_f=lambda: KernelUpConv.apply(xu, *args),
-                             kernel_fb=fb(KernelUpConv),
+                             dense_f=lambda: DenseRouteUpConv.apply(
+                                 xu, wu, plan),
+                             dense_fb=fb(DenseRouteUpConv),
                              plain_f=lambda: up_conv_plain(xu, wu, plan),
                              plain_fb=lambda: (up_conv_plain(xu, wu, plan),
                                                up_conv_bwd_plain(*b)))})

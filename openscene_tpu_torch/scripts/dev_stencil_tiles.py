@@ -131,6 +131,7 @@ def sweep(geo, iters, seed=0):
         lv, plan = geo.levels[level], geo.self3[level]
         a, b = acts(lv, ca), acts(lv, cb)
         ref = sc.gather_wgrad_cuda(a, b, plan.fwd, plan.skip)
+        pairs = (plan.skip.pair_rows, plan.skip.pair_count)
         tol = 1e-4 * ref.abs().max().item()
 
         def library():
@@ -148,14 +149,14 @@ def sweep(geo, iters, seed=0):
                 lambda: sc.gather_wgrad_cuda(a, b, plan.fwd), iters)}),
             flush=True)
         for i, cfg in enumerate(wgrad_configs(lv.cap, ca, cb)):
-            out = sc.launch_gather_wgrad(a, b, plan.fwd, plan.skip, *cfg)
+            out = sc.launch_gather_wgrad(a, b, plan.fwd, pairs, *cfg)
             err = (out - ref).abs().max().item()
             if not err <= tol:
                 raise AssertionError(f"{base} {cfg}: differs by {err}")
             print(json.dumps({**base, "bma_bnb_per_splits": cfg,
                               "chosen": i == 0, "device_ms": device_time_ms(
                                   lambda: sc.launch_gather_wgrad(
-                                      a, b, plan.fwd, plan.skip, *cfg),
+                                      a, b, plan.fwd, pairs, *cfg),
                                   iters)}), flush=True)
 
 

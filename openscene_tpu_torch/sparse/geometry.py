@@ -26,6 +26,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .edge_conv import with_edge_layouts
 from .stencil_conv import build_conv_skip
 from .types import (ConvPlan, DownPlan, LevelGeometry, UNetGeometry,
                     flip_permutation, stencil_offsets)
@@ -253,10 +254,11 @@ def geometry_to_device(geo: UNetGeometry, device) -> UNetGeometry:
     """The same geometry with every plan array as an int32 tensor on
     ``device``; each level's ``num`` stays a host int (it sizes masks and
     BatchNorm statistics without a device round trip).  Each k=3 plan gets
-    its skip plan (``stencil_conv.build_conv_skip``), built on ``device``,
-    bit-identical to the one ``geometry_device.build_geometry_parts`` builds
-    for the same plans.  Raises if a gather index lies outside its source
-    level."""
+    its skip plan (``stencil_conv.build_conv_skip``) and each edge its
+    groups and skip plan (``edge_conv.with_edge_layouts``), built on
+    ``device``, bit-identical to the ones
+    ``geometry_device.build_geometry_parts`` builds for the same plans.
+    Raises if a gather index lies outside its source level."""
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
 
@@ -280,6 +282,8 @@ def geometry_to_device(geo: UNetGeometry, device) -> UNetGeometry:
         stem=plan(geo.stem, caps[0], "stem.fwd"),
         self3=tuple(plan(p, caps[l], f"self3[{l}].fwd", geo.levels[l].num)
                     for l, p in enumerate(geo.self3)),
-        down=tuple(DownPlan(fwd=t(d.fwd), child_parent=t(d.child_parent),
-                            child_offset=t(d.child_offset))
-                   for d in geo.down))
+        down=tuple(with_edge_layouts(
+            DownPlan(fwd=t(d.fwd), child_parent=t(d.child_parent),
+                     child_offset=t(d.child_offset)),
+            int(geo.levels[e].num), int(geo.levels[e + 1].num))
+            for e, d in enumerate(geo.down)))

@@ -37,8 +37,10 @@ tensor on the device, so the build never waits for the device):
 
 Every k=3 plan carries its skip plan (``ConvPlan.skip``, built by
 ``stencil_conv.build_conv_skip`` from the plan and the level's 0-d ``num``,
-no host read), the same as ``geometry.geometry_to_device`` builds for the
-host plans.
+no host read), and every edge its groups and skip plan (``DownPlan.groups``
+and ``.skip``, ``edge_conv.with_edge_layouts`` from the plan and both
+levels' 0-d ``num``), the same as ``geometry.geometry_to_device`` builds
+for the host plans.
 
 ``n_scenes`` switches the stencil probing to the occupancy-grid prober of
 :mod:`.grid`.  The overflow flag (a 0-d bool tensor) is set when a coarse
@@ -54,6 +56,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .edge_conv import with_edge_layouts
 from .stencil_conv import build_conv_skip
 from .types import (ConvPlan, DownPlan, LevelGeometry, UNetGeometry,
                     flip_permutation, stencil_offsets)
@@ -373,6 +376,9 @@ def build_geometry_parts(coords: torch.Tensor, num, caps: Sequence[int],
     # conv on the level, forward and backward
     self3 = [p._replace(skip=build_conv_skip(p.fwd, lv.num))
              for p, lv in zip(self3, levels)]
+    # each edge's groups and skip plan, read by the up conv's kernels
+    downs = [with_edge_layouts(d, levels[e].num, levels[e + 1].num)
+             for e, d in enumerate(downs)]
     geo = UNetGeometry(levels=tuple(levels), stem=stem, self3=tuple(self3),
                        down=tuple(downs), stem_occ=stem_occ)
     return geo, overflow

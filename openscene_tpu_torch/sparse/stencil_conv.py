@@ -80,6 +80,29 @@ WGRAD_MAX_ROWS = 4096
 _WGRAD_STEP = 32            # csrc/gather_gemm_bwd.cu: BR
 
 
+def sorted_masks(bits: torch.Tensor):
+    """``(nbr_mask, order, tile_mask)`` of a (K, rows) bool matrix: bit k of
+    row r's mask is ``bits[k, r]``, ``order`` the rows stably sorted by
+    mask, ``tile_mask`` the OR over each ``TILE_ROWS`` entries of
+    ``order``, all int32 (the first three fields of :class:`ConvSkip` and of
+    :class:`~.types.EdgeSkip`).  Plain tensor ops, deterministic."""
+    K, rows = bits.shape
+    if K > 31:
+        raise ValueError(f"K={K} offsets do not fit an int32 neighbour mask")
+    dev = bits.device
+    weight = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
+        K, device=dev)
+    nbr = (bits.to(torch.int64) * weight[:, None]).sum(0)
+    order = torch.argsort(nbr, stable=True)
+    tiles = -(-rows // TILE_ROWS)
+    sb = torch.zeros((K, tiles * TILE_ROWS), dtype=torch.bool, device=dev)
+    sb[:, :rows] = bits[:, order]
+    tmask = (sb.reshape(K, tiles, TILE_ROWS).any(2).to(torch.int64)
+             * weight[:, None]).sum(0)
+    return (nbr.to(torch.int32), order.to(torch.int32),
+            tmask.to(torch.int32))
+
+
 def build_conv_skip(fwd: torch.Tensor, num) -> ConvSkip:
     """The :class:`ConvSkip` of a stencil plan ``fwd`` (K, cap) int32 with
     ``num`` valid rows (an int or a 0-d tensor on ``fwd``'s device).
@@ -90,29 +113,17 @@ def build_conv_skip(fwd: torch.Tensor, num) -> ConvSkip:
     sort within windows of rows kept the gathers more local but loosened
     the tile masks, and lost on the card (PERF.md)."""
     K, cap = fwd.shape
-    if K > 31:
-        raise ValueError(f"K={K} offsets do not fit an int32 neighbour mask")
     dev = fwd.device
     num = torch.as_tensor(num, device=dev)
     rows = torch.arange(cap, device=dev)
     bits = (fwd < num) & (rows < num)[None, :]                  # (K, cap)
-    weight = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
-        K, device=dev)
-    nbr = (bits.to(torch.int64) * weight[:, None]).sum(0)
-    order = torch.argsort(nbr, stable=True)
-    tiles = -(-cap // TILE_ROWS)
-    sb = torch.zeros((K, tiles * TILE_ROWS), dtype=torch.bool, device=dev)
-    sb[:, :cap] = bits[:, order]
-    tmask = (sb.reshape(K, tiles, TILE_ROWS).any(2).to(torch.int64)
-             * weight[:, None]).sum(0)
+    nbr, order, tmask = sorted_masks(bits)
     pos = torch.cumsum(bits, 1, dtype=torch.int64) - 1
     flat = torch.where(bits, pos + (torch.arange(K, device=dev) * cap)[:, None],
                        torch.full_like(pos, K * cap))
     pair = torch.full((K * cap + 1,), cap - 1, dtype=torch.int32, device=dev)
     pair[flat.reshape(-1)] = rows.to(torch.int32).expand(K, cap).reshape(-1)
-    return ConvSkip(nbr_mask=nbr.to(torch.int32),
-                    order=order.to(torch.int32),
-                    tile_mask=tmask.to(torch.int32),
+    return ConvSkip(nbr_mask=nbr, order=order, tile_mask=tmask,
                     pair_rows=pair[:K * cap].reshape(K, cap),
                     pair_count=bits.sum(1).to(torch.int32))
 
@@ -172,7 +183,7 @@ def _bind() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     fn = lib.gather_gemm_fwd_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -182,7 +193,7 @@ def _bind_bwd() -> ctypes.CDLL:
     lib = _build.load(_LIB_BWD)
     fn = lib.gather_wgrad_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -192,29 +203,41 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_skip(skip: ConvSkip, K: int, rows: int, device: int) -> None:
-    """The wrappers' checks of a skip plan (``device``: the CUDA device
-    index): the kernels read it unchecked."""
+def check_index_arrays(arrays, shapes, device: int, what: str) -> None:
+    """Each of ``arrays`` (a NamedTuple of index tensors) int32, contiguous,
+    on cuda:``device`` and of its shape in ``shapes`` (by field name): the
+    kernels read plans unchecked."""
+    for name, t in zip(arrays._fields, arrays):
+        if t.shape != shapes[name] or t.dtype != torch.int32:
+            raise ValueError(f"{what}.{name}: {t.dtype} {tuple(t.shape)}, "
+                             f"want int32 {shapes[name]}")
+        if t.get_device() != device or not t.is_contiguous():
+            raise ValueError(f"{what}.{name} must be contiguous on "
+                             f"cuda:{device}")
+
+
+def _check_skip(skip, K: int, rows: int, device: int) -> None:
+    """The wrappers' checks of a :class:`ConvSkip` (or of the
+    :class:`~.types.EdgeSkip` its first three fields make) of a (K, rows)
+    plan on cuda:``device``."""
     if K > 31:
         raise ValueError(f"a skip plan needs K <= 31 offsets, got {K}")
-    shapes = ((rows,), (rows,), (-(-rows // TILE_ROWS),), (K, rows), (K,))
-    for i, shape in enumerate(shapes):
-        t = skip[i]
-        if t.shape != shape or t.dtype != torch.int32:
-            raise ValueError(f"skip.{ConvSkip._fields[i]}: {t.dtype} "
-                             f"{tuple(t.shape)}, want int32 {shape}")
-        if t.get_device() != device or not t.is_contiguous():
-            raise ValueError(f"skip.{ConvSkip._fields[i]} must be "
-                             f"contiguous on cuda:{device}")
+    check_index_arrays(skip, {"nbr_mask": (rows,), "order": (rows,),
+                              "tile_mask": (-(-rows // TILE_ROWS),),
+                              "pair_rows": (K, rows), "pair_count": (K,)},
+                       device, "skip")
 
 
 def launch_gather_gemm(x: torch.Tensor, wb: torch.Tensor, idx: torch.Tensor,
-                       skip: Optional[ConvSkip], bm: int, bn: int,
-                       groups: int = 1) -> torch.Tensor:
+                       skip, bm: int, bn: int, groups: int = 1,
+                       w_nk: bool = False) -> torch.Tensor:
     """One launch of ``csrc/gather_gemm_fwd.cu`` with the row and column
     tiles and offset groups given (``gather_gemm_cuda`` checks the
-    arguments; wb is the bf16 weight).  Returns (rows_out, Cout) bf16."""
+    arguments; wb is the bf16 weight, (K, Cout, Cin) if ``w_nk``).  Returns
+    (rows_out, Cout) bf16."""
     K, cin, cout = wb.shape
+    if w_nk:
+        cin, cout = cout, cin
     rows_out = idx.shape[1]
     dev = x.device
     out = torch.empty((rows_out, cout), dtype=torch.bfloat16, device=dev)
@@ -223,31 +246,39 @@ def launch_gather_gemm(x: torch.Tensor, wb: torch.Tensor, idx: torch.Tensor,
     part = None if groups == 1 else torch.empty(
         (groups, rows_out, cout), dtype=torch.float32, device=dev)
     lib = _bind()
-    s = skip if skip is not None else ConvSkip(None, None, None, None, None)
+    order, tile_mask, nbr_mask = ((None, None, None) if skip is None else
+                                  (skip.order, skip.tile_mask, skip.nbr_mask))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gather_gemm_fwd_bf16(
-            x.data_ptr(), wb.data_ptr(), idx.data_ptr(), _ptr(s.order),
-            _ptr(s.tile_mask), _ptr(s.nbr_mask), _ptr(part), out.data_ptr(),
-            rows_out, K, cin, cout, bm, bn, TILE_ROWS, groups, stream)
+            x.data_ptr(), wb.data_ptr(), idx.data_ptr(), _ptr(order),
+            _ptr(tile_mask), _ptr(nbr_mask), _ptr(part), out.data_ptr(),
+            rows_out, K, cin, cout, bm, bn, TILE_ROWS, groups, int(w_nk),
+            stream)
     if err != 0:
         raise RuntimeError(f"gather_gemm_fwd launch failed: cudaError {err}")
     return out
 
 
 def gather_gemm_cuda(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-                     skip: Optional[ConvSkip] = None) -> torch.Tensor:
-    """Launch ``csrc/gather_gemm_fwd.cu`` once: ``sum_k x[idx[k]] @ w[k]``.
+                     skip=None, w_nk: bool = False,
+                     tiles: Optional[Tuple[int, int, int]] = None
+                     ) -> torch.Tensor:
+    """Launch ``csrc/gather_gemm_fwd.cu`` once: ``sum_k x[idx[k]] @ w[k]``,
+    or ``sum_k x[idx[k]] @ w[k]^T`` with ``w_nk``.
 
     x: (rows_in, Cin) bf16 CUDA, contiguous; w: (K, Cin, Cout) float weights
-    (cast to bf16 here, once per call); idx: (K, rows_out) int32 CUDA,
+    ((K, Cout, Cin) with ``w_nk``, read transposed inside the kernel; cast
+    to bf16 here where they are not); idx: (K, rows_out) int32 CUDA,
     contiguous, every entry below rows_in; a negative entry contributes
-    zero.  Cin and Cout must be multiples of 8.  ``skip``: the
-    :class:`ConvSkip` of ``idx`` (rows_in == rows_out, K <= 31); the kernel
-    then multiplies only the offsets each tile of sorted rows holds, and x
-    must be exactly zero at every row ``idx`` points to where the skip plan
-    says no neighbour is.  Returns (rows_out, Cout) bf16.  Raises on
-    anything else, and if the launch is refused.
+    zero.  Cin and Cout must be multiples of 8.  ``skip``: a
+    :class:`ConvSkip` of ``idx`` (K <= 31), or an
+    :class:`~.types.EdgeSkip` (its first three fields); the kernel then
+    multiplies only the offsets each tile of sorted rows holds, and x must
+    be exactly zero at every row ``idx`` points to where the skip plan says
+    no neighbour is.  ``tiles``: (row tile, column tile, offset groups),
+    by default :func:`fwd_tiles`'s.  Returns (rows_out, Cout) bf16.  Raises
+    on anything else, and if the launch is refused.
     """
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
@@ -258,6 +289,8 @@ def gather_gemm_cuda(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
                          f"idx{tuple(idx.shape)}: want (N, Cin), "
                          "(K, Cin, Cout), (K, rows_out)")
     K, cin, cout = w.shape
+    if w_nk:
+        cin, cout = cout, cin
     if x.shape[1] != cin or idx.shape[0] != K:
         raise ValueError(f"x{tuple(x.shape)} w{tuple(w.shape)} "
                          f"idx{tuple(idx.shape)} disagree")
@@ -278,20 +311,25 @@ def gather_gemm_cuda(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
         raise ValueError("sizes beyond the kernel's 32-bit indexing")
     if skip is not None:
         _check_skip(skip, K, rows_out, d)
-    return launch_gather_gemm(x, w.to(torch.bfloat16).contiguous(), idx,
-                              skip, *fwd_tiles(rows_out, K, cin, cout,
-                                               skip is not None))
+    return launch_gather_gemm(
+        x, w.to(torch.bfloat16).contiguous(), idx, skip,
+        *(tiles or fwd_tiles(rows_out, K, cin, cout, skip is not None)),
+        w_nk=w_nk)
 
 
-def launch_gather_wgrad(a: torch.Tensor, b: torch.Tensor, idx: torch.Tensor,
-                        skip: Optional[ConvSkip], bma: int, bnb: int,
-                        per: int, splits: int) -> torch.Tensor:
+def launch_gather_wgrad(a: torch.Tensor, b: torch.Tensor, idx, pairs,
+                        bma: int, bnb: int, per: int, splits: int,
+                        amap: Optional[torch.Tensor] = None,
+                        seg_tile: int = 0) -> torch.Tensor:
     """``csrc/gather_gemm_bwd.cu`` with the tiles and row splits given
-    (``gather_wgrad_cuda`` checks the arguments).  Returns (K, Ca, Cb)
-    fp32."""
+    (``gather_wgrad_cuda`` and ``edge_conv.up_conv_bwd`` check the
+    arguments).  ``pairs``: ``(pair_rows, pair_count)`` or None (dense);
+    with ``amap`` they are segments of ``seg_tile``-padded lists of b's
+    rows (:class:`~.types.EdgeGroups`), a's row being ``amap[b's row]``,
+    and ``idx`` is unused.  Returns (K, Ca, Cb) fp32."""
     rows, ca = a.shape
     cb = b.shape[1]
-    K = idx.shape[0]
+    K = idx.shape[0] if amap is None else pairs[1].shape[0]
     dev = a.device
     out = torch.empty((K, ca, cb), dtype=torch.float32, device=dev)
     if rows == 0 or K == 0:
@@ -301,13 +339,13 @@ def launch_gather_wgrad(a: torch.Tensor, b: torch.Tensor, idx: torch.Tensor,
     part = out if splits == 1 else torch.empty(
         (splits, K, ca, cb), dtype=torch.float32, device=dev)
     lib = _bind_bwd()
-    s = skip if skip is not None else ConvSkip(None, None, None, None, None)
+    pair_rows, pair_count = pairs if pairs is not None else (None, None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gather_wgrad_bf16(
-            a.data_ptr(), b.data_ptr(), idx.data_ptr(), _ptr(s.pair_rows),
-            _ptr(s.pair_count), part.data_ptr(), out.data_ptr(), rows, K, ca,
-            cb, bma, bnb, per, splits, stream)
+            a.data_ptr(), b.data_ptr(), _ptr(idx), _ptr(pair_rows),
+            _ptr(pair_count), _ptr(amap), part.data_ptr(), out.data_ptr(),
+            rows, K, ca, cb, bma, bnb, per, splits, seg_tile, stream)
     if err != 0:
         raise RuntimeError(f"gather_wgrad launch failed: cudaError {err}")
     return out
@@ -356,7 +394,8 @@ def gather_wgrad_cuda(a: torch.Tensor, b: torch.Tensor, idx: torch.Tensor,
         raise ValueError("sizes beyond the kernel's 32-bit indexing")
     if skip is not None:
         _check_skip(skip, K, rows, d)
-    return launch_gather_wgrad(a, b, idx, skip,
+    pairs = None if skip is None else (skip.pair_rows, skip.pair_count)
+    return launch_gather_wgrad(a, b, idx, pairs,
                                *wgrad_tiles(rows, K, ca, cb, skip is not None))
 
 

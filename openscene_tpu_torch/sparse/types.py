@@ -98,6 +98,48 @@ class ConvPlan(NamedTuple):
         return self.fwd.shape[0]
 
 
+class EdgeGroups(NamedTuple):
+    """The valid child rows of a :class:`DownPlan` grouped by offset: the
+    layout the CUDA up-conv kernels read (``csrc/up_conv_fwd.cu`` walks its
+    tiles, the up-conv ``dW`` reduces each offset over its segment; built by
+    ``sparse/edge_conv.py:build_edge_groups`` from ``child_offset`` and the
+    child level's ``num`` alone).  Padded children are in no segment.
+
+    rows:   (tiles * EDGE_TILE,) int32 — the valid children stably sorted by
+            offset, ascending within each offset; each offset's segment
+            starts on a multiple of ``EDGE_TILE`` (64) and is padded with
+            -1.  ``tiles = ceil(child_cap / EDGE_TILE) + 8``, static.
+    tile_k: (tiles,) int32 — the offset of each ``EDGE_TILE``-row tile of
+            ``rows``; -1 past the last segment.
+    count:  (8,) int32 — the valid children of each offset (segment k
+            starts at ``EDGE_TILE * sum_{j<k} ceil(count[j] / EDGE_TILE)``).
+    """
+    rows: np.ndarray
+    tile_k: np.ndarray
+    count: np.ndarray
+
+
+class EdgeSkip(NamedTuple):
+    """Which children each parent of a :class:`DownPlan` holds: the layout
+    the up-conv backward's ``dx`` (over the parents, through
+    ``csrc/gather_gemm_fwd.cu``) reads to skip the missing ones; the first
+    three fields of a :class:`ConvSkip`, with the child level's ``num`` for
+    the neighbour bit and the parent level's for the rows (built by
+    ``sparse/edge_conv.py:build_edge_skip``).
+
+    nbr_mask:  (parent_cap,) int32 — bit k set iff ``fwd[k, p]`` is a valid
+               child (and ``p`` a valid parent); padded parents 0.
+    order:     (parent_cap,) int32 — the parents stably sorted by
+               ``nbr_mask``.
+    tile_mask: (ceil(parent_cap / TILE_ROWS),) int32 — OR of ``nbr_mask``
+               over each tile of ``TILE_ROWS`` consecutive entries of
+               ``order``.
+    """
+    nbr_mask: np.ndarray
+    order: np.ndarray
+    tile_mask: np.ndarray
+
+
 class DownPlan(NamedTuple):
     """kernel=2, stride=2 down-conv edge between two levels.
 
@@ -105,10 +147,17 @@ class DownPlan(NamedTuple):
     child_parent: (child_cap,) int32 — parent row of each child (null-padded).
     child_offset: (child_cap,) int32 — offset id (0..7) of each child within
                   its parent; 0 for padded rows.
+    groups:       optional :class:`EdgeGroups` of the children, and
+    skip:         optional :class:`EdgeSkip` of the parents: set on the
+                  device plans (``geometry_to_device``,
+                  ``build_geometry_parts``), where the up conv's kernels
+                  need them; None from the NumPy builder.
     """
     fwd: np.ndarray
     child_parent: np.ndarray
     child_offset: np.ndarray
+    groups: Optional[EdgeGroups] = None
+    skip: Optional[EdgeSkip] = None
 
 
 class UNetGeometry(NamedTuple):

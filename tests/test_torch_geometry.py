@@ -55,9 +55,16 @@ def _plan_fields(p):
     return None if p is None else (p.fwd, p.flip_perm)
 
 
+def _down_fields(d):
+    """An edge's index arrays; the port's plans also carry optional groups
+    and a skip plan (None from the NumPy builder)."""
+    return (d.fwd, d.child_parent, d.child_offset)
+
+
 def _geo_fields(geo):
     return (geo.levels, _plan_fields(geo.stem),
-            tuple(_plan_fields(p) for p in geo.self3), geo.down)
+            tuple(_plan_fields(p) for p in geo.self3),
+            tuple(_down_fields(d) for d in geo.down))
 
 
 @pytest.fixture(params=["native", "numpy"])

@@ -86,7 +86,9 @@ def _arrays(geo):
             out[f"{name}.fwd"] = p.fwd
         out[f"{name}.flip_perm"] = p.flip_perm
     for e, d in enumerate(geo.down):
-        for f in d._fields:
+        # the index arrays; the port's edge layouts are compared with the
+        # host path's in tests/test_torch_up_conv.py
+        for f in ("fwd", "child_parent", "child_offset"):
             out[f"down[{e}].{f}"] = getattr(d, f)
     occ = geo.stem_occ
     if isinstance(occ, torch.Tensor):

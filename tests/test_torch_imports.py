@@ -66,7 +66,7 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                 "sparse.stencil_conv", "sparse.ops", "convert",
                 "sparse.geometry_device", "sparse.grid", "sparse.pack",
                 "scripts.dev_bench_ops", "scripts.dev_pack_bench",
-                "scripts.timing"):
+                "scripts.dev_up_tiles", "scripts.timing"):
         assert "openscene_tpu_torch." + mod in names
 
 

@@ -36,9 +36,10 @@ from openscene_tpu_torch.sparse.edge_conv import (DownConv, UpConv,
 from openscene_tpu_torch.sparse.geometry import build_unet_geometry
 from openscene_tpu_torch.sparse.stencil_conv import (StencilConv,
                                                      stencil_conv_bwd)
-from openscene_tpu_torch.sparse.types import ConvPlan, DownPlan
-from tests.test_torch_sparse_ops import (_acts, _pair, geo,  # noqa: F401
-                                         interpret_mode, window_geo)
+from openscene_tpu_torch.sparse.types import ConvPlan
+from tests.test_torch_sparse_ops import (_acts, _pair, _torch_down,
+                                         geo, interpret_mode,  # noqa: F401
+                                         window_geo)
 from tests.test_torch_unet import _one_thread  # noqa: F401
 
 BF16_ULP = 2.0 ** -7
@@ -122,11 +123,11 @@ def test_down_conv_grads_match_jax(geo, dtype, edge, cin, cout):
                                                       dtype, 10 + edge)
     w = (rng.standard_normal((8, cin, cout)) * 0.2).astype(np.float32)
     jplan = jax.tree_util.tree_map(jnp.asarray, plan)
-    tplan = DownPlan(*(torch.from_numpy(a) for a in plan))
+    tplan = _torch_down(geo, edge)
     wt = torch.from_numpy(w)
     ref = _jax_grads(lambda a, b: jops.sparse_down_conv(a, b, jplan), xj,
                      jnp.asarray(w), gj)
-    got = _grads(lambda a, b: DownConv.apply(a, b, *tplan), x, wt, g)
+    got = _grads(lambda a, b: DownConv.apply(a, b, *tplan[:3]), x, wt, g)
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     _check(got, ref, nc, dtype)
     for fn in (down_conv_bwd, ops.sparse_down_conv_bwd):
@@ -141,11 +142,11 @@ def test_up_conv_grads_match_jax(geo, dtype, edge, cin, cout):
                                                       dtype, 20 + edge)
     w = (rng.standard_normal((8, cin, cout)) * 0.2).astype(np.float32)
     jplan = jax.tree_util.tree_map(jnp.asarray, plan)
-    tplan = DownPlan(*(torch.from_numpy(a) for a in plan))
+    tplan = _torch_down(geo, edge)
     wt = torch.from_numpy(w)
     ref = _jax_grads(lambda a, b: jops.sparse_up_conv(a, b, jplan), xj,
                      jnp.asarray(w), gj)
-    got = _grads(lambda a, b: UpConv.apply(a, b, *tplan), x, wt, g)
+    got = _grads(lambda a, b: UpConv.apply(a, b, tplan), x, wt, g)
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     _check(got, ref, np_, dtype)
     for fn in (up_conv_bwd, ops.sparse_up_conv_bwd):
@@ -190,7 +191,7 @@ def test_down_bwd_matches_windowed_kernel(interpret_mode, window_geo):
     ewp = [jnp.asarray(a) for a in _edge_window_plan(window_geo)]
     ref = _jax_grads(lambda a, b: pallas_edge.windowed_down_conv(a, b, *ewp),
                      xj, jnp.asarray(w), gj)
-    tplan = DownPlan(*(torch.from_numpy(np.asarray(a)) for a in plan))
+    tplan = _torch_down(window_geo, 0)
     got = down_conv_bwd(x, torch.from_numpy(w), g, tplan)
     _check(got, ref, nc, torch.bfloat16, **PALLAS_TOL)
 
@@ -205,7 +206,7 @@ def test_up_bwd_matches_mixed_up_conv_kernel(interpret_mode, window_geo):
         ewp.dspill_ent, ewp.dspill_fwd)]
     ref = _jax_grads(lambda a, b: pallas_edge.mixed_up_conv(a, b, *args),
                      xj, jnp.asarray(w), gj)
-    tplan = DownPlan(*(torch.from_numpy(np.asarray(a)) for a in plan))
+    tplan = _torch_down(window_geo, 0)
     got = up_conv_bwd(x, torch.from_numpy(w), g, tplan)
     _check(got, ref, np_, torch.bfloat16, **PALLAS_TOL)
 
@@ -299,22 +300,24 @@ def _dense_up(x_parent, w, child_lv, parent_lv):
 def test_edge_functions_match_dense_strided_convs(tiny, which):
     child, parent = tiny.levels[0], tiny.levels[1]
     nc, np_ = int(child.num), int(parent.num)
-    tplan = DownPlan(*(torch.from_numpy(a) for a in tiny.down[0]))
+    tplan = _torch_down(tiny, 0)
     rng = np.random.default_rng(1)
     cin, cout = 5, 6
     w = torch.from_numpy(rng.standard_normal((8, cin, cout)))
     if which == "down":
         x, g = _f64(rng, child.cap, nc, cin), _f64(rng, parent.cap, np_, cout)
         fn, dense, n_in, n_out = DownConv, _dense_down, nc, np_
+        args = tplan[:3]
     else:
         x, g = _f64(rng, parent.cap, np_, cin), _f64(rng, child.cap, nc, cout)
         fn, dense, n_in, n_out = UpConv, _dense_up, np_, nc
-    out = fn.apply(x, w, *tplan)
+        args = (tplan,)
+    out = fn.apply(x, w, *args)
     pad = out.shape[0] - n_out
     ref_fn = lambda a, b: torch.nn.functional.pad(
         dense(a, b, child, parent), (0, 0, 0, pad))
     torch.testing.assert_close(out, ref_fn(x, w), rtol=1e-10, atol=1e-10)
-    dx, dw = _grads(lambda a, b: fn.apply(a, b, *tplan), x, w, g)
+    dx, dw = _grads(lambda a, b: fn.apply(a, b, *args), x, w, g)
     dx_ref, dw_ref = _grads(ref_fn, x, w, g)
     assert dx.dtype == dw.dtype == torch.float64
     torch.testing.assert_close(dx, dx_ref, rtol=1e-10, atol=1e-10)

@@ -25,7 +25,8 @@ from openscene_tpu.sparse.geometry import GeometryCaps
 from openscene_tpu.sparse.geometry import \
     build_unet_geometry as jax_build_geometry
 from openscene_tpu_torch.sparse import ops
-from openscene_tpu_torch.sparse.edge_conv import down_conv_fwd, up_conv_fwd
+from openscene_tpu_torch.sparse.edge_conv import (down_conv_fwd, up_conv_fwd,
+                                                  with_edge_layouts)
 from openscene_tpu_torch.sparse.geometry import build_unet_geometry
 from openscene_tpu_torch.sparse.stencil_conv import stencil_conv_fwd
 from openscene_tpu_torch.sparse.types import DownPlan
@@ -46,6 +47,16 @@ def _surface(seed, n, span):
 @pytest.fixture(scope="module")
 def geo():
     return build_unet_geometry(_surface(0, 3000, 70))
+
+
+def _torch_down(geo, edge):
+    """Edge ``edge`` of ``geo`` (the port's or the JAX package's NumPy
+    plans) as the port's DownPlan of CPU tensors, with the groups and skip
+    plan the device plans carry."""
+    plan = DownPlan(*(torch.from_numpy(np.asarray(a))
+                      for a in geo.down[edge][:3]))
+    return with_edge_layouts(plan, int(geo.levels[edge].num),
+                             int(geo.levels[edge + 1].num))
 
 
 def _acts(rng, cap, num, c):
@@ -104,7 +115,7 @@ def test_down_conv_matches_jax(geo, dtype, edge, cin, cout):
     ref = jops.sparse_down_conv(xj, jnp.asarray(w),
                                 jax.tree_util.tree_map(jnp.asarray, plan))
     fwd = torch.from_numpy(plan.fwd)
-    tplan = DownPlan(*(torch.from_numpy(a) for a in plan))
+    tplan = _torch_down(geo, edge)
     num = int(parent.num)
     _check(ops.sparse_down_conv(x, torch.from_numpy(w), tplan), ref, num,
            dtype)
@@ -122,7 +133,7 @@ def test_up_conv_matches_jax(geo, dtype, edge, cin, cout):
     w = (rng.standard_normal((8, cin, cout)) * 0.2).astype(np.float32)
     ref = jops.sparse_up_conv(xj, jnp.asarray(w),
                               jax.tree_util.tree_map(jnp.asarray, plan))
-    tplan = DownPlan(*(torch.from_numpy(a) for a in plan))
+    tplan = _torch_down(geo, edge)
     _check(up_conv_fwd(x, torch.from_numpy(w), tplan), ref, int(child.num),
            dtype)
 
