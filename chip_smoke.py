@@ -56,8 +56,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    Losses must be finite and the third below the first.  One step through
    device geometry and one through host geometry on the same batch, caps
    and starting state must give the same loss and gradients exactly.  Each
-   is profiled once, and the stencil sources' device ms are printed beside
-   the previous design's.  Then
+   is profiled once, and the conv kernels' device ms are printed, the two
+   gather-GEMM sources' beside the previous design's.  Then
    one more step runs from the same model and optimizer state through the
    kernels, through the plain versions, and through the plain versions in
    fp32: the loss and the updated parameters of the first two must agree,
@@ -413,8 +413,8 @@ def kernels_phase_bwd(geo):
             return dx, torch.matmul(x.t().unsqueeze(0), G)
 
         def replaced(x=x, g=g, w=w, plan=plan):
-            # PR 4's design: both products dense over every parent and
-            # offset, on a transposed bf16 copy of W
+            # the design it replaced: both products dense over every
+            # parent and offset, on a transposed bf16 copy of W
             return (gather_gemm_cuda(g, w.transpose(1, 2), plan.fwd),
                     gather_wgrad_cuda(x, g, plan.fwd))
 
@@ -1162,7 +1162,7 @@ def main():
                      f"build alone {c['groups_build_ms']:.4f}"
                      if "groups_build_ms" in c else "")
                   + (f", dx alone {c['dx_ms']:.4f}, dW alone "
-                     f"{c['dw_ms']:.4f}, PR 4's dense design "
+                     f"{c['dw_ms']:.4f}, the replaced dense design "
                      f"{c['replaced_ms']:.4f}" if "replaced_ms" in c
                      else "")
                   + (f", dW err {c['dw_max_abs_err']:.3e} of tol "

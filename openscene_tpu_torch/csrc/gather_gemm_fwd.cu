@@ -80,8 +80,8 @@ constexpr int MAX_THREADS = 512;
 constexpr int LDA = BK + 8;      // padded row stride of the gathered tile
 
 // W_NK: W[k] stored (cout, cin) and read transposed.  A template argument:
-// as a runtime flag it slowed the plain layout's stencil forward by about
-// 30% at L0 on an H100 (PERF.md, PR 5).
+// as a runtime flag it slowed the plain layout's stencil forward by about a
+// third at L0 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 template <bool W_NK>
 __global__ void __launch_bounds__(MAX_THREADS)
 gather_gemm_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,

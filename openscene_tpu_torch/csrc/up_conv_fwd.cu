@@ -42,7 +42,8 @@
 //     written to their children as 16-byte vectors, a row's slab by
 //     neighbouring threads: the scattered child rows made the direct
 //     4-byte stores from the mma fragments the kernel's bottleneck (about
-//     40% of its time at MinkUNet18A's edge 0 on an H100).  A valid child
+//     half of its time at MinkUNet18A's edge 0 on an NVIDIA H100 80GB HBM3
+//     at 700 W, PERF.md).  A valid child
 //     lies in exactly one tile and the padded children (rows [num,
 //     child_cap), num = sum of the groups' counts) are written zero, spread
 //     over all blocks: every output row is written once, no atomics, and
@@ -211,223 +212,6 @@ up_conv_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-// ---- The up-conv backward as one fused launch over the children, the
-// design the JAX kernel (pallas_edge.py:374) takes, measured against the two
-// skipping launches (scripts/dev_up_tiles.py).  Block (j, k) walks tiles
-// [j*tpb, (j+1)*tpb) of offset k's segment of the groups: it gathers each
-// tile's cotangent rows g[c] (64 x Cout) and parent rows x[parent(c)]
-// (64 x Cin) once, writes y[c] = g[c] @ W[k]^T (fp32, each child's share of
-// its parent's dx) and adds x^T g to its fp32 dW[k] partial in registers.
-// Two reduces follow: dx[p] = sum over the offsets p holds, in order, of
-// y[fwd[k, p]], rounded once; dW[k] = the block partials in order.  Cin and
-// Cout multiples of 32, at most 256.
-
-__global__ void __launch_bounds__(MAX_THREADS)
-up_bwd_fused_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                    const bf16* __restrict__ w,
-                    const int32_t* __restrict__ child_parent,
-                    const int32_t* __restrict__ rows,
-                    const int32_t* __restrict__ count, float* __restrict__ y,
-                    float* __restrict__ dw_part, int cin, int cout, int tpb,
-                    int chunks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int k = blockIdx.y;
-  const int j = blockIdx.x;
-  int seg0 = 0;  // offset k's segment: first tile, tiles
-  for (int q = 0; q < k; ++q) seg0 += (count[q] + BM - 1) / BM;
-  const int seg_tiles = (count[k] + BM - 1) / BM;
-  const int t_begin = j * tpb;
-  if (t_begin >= seg_tiles) return;  // its partial is never read
-  const int nt = min(seg_tiles, t_begin + tpb) - t_begin;
-  const int nthreads = blockDim.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  const int ldx = cin + 8;
-  const int ldg = cout + 8;
-  const int cw = cin / 32;   // 32-column slabs of Cin
-  const int ow = cout / 32;  // 32-column slabs of Cout
-
-  bf16* Ws = reinterpret_cast<bf16*>(smem);  // cin x ldg: W[k]
-  bf16* Gs = Ws + cin * ldg;                 // 2 x BM x ldg
-  bf16* Xs = Gs + 2 * BM * ldg;              // 2 x BM x ldx
-  int* sc = reinterpret_cast<int*>(Xs + 2 * BM * ldx);  // child rows
-  int* sp = sc + tpb * BM;                              // their parents
-
-  for (int v = tid; v < nt * BM; v += nthreads) {
-    const int c = rows[(size_t)(seg0 + t_begin) * BM + v];
-    sc[v] = c;
-    sp[v] = c >= 0 ? child_parent[c] : -1;
-  }
-  for (int v = tid; v < cin * (cout / 8); v += nthreads) {
-    const int i = v / (cout / 8);
-    const int o = (v - i * (cout / 8)) * 8;
-    gg::cp_async16(Ws + i * ldg + o, w + ((size_t)k * cin + i) * cout + o,
-                   true);
-  }
-  __syncthreads();
-
-  auto load = [&](int t) {
-    bf16* gs = Gs + (t & 1) * BM * ldg;
-    bf16* xs = Xs + (t & 1) * BM * ldx;
-    for (int v = tid; v < BM * (cout / 8); v += nthreads) {
-      const int r = v / (cout / 8);
-      const int o = (v - r * (cout / 8)) * 8;
-      const int c = sc[t * BM + r];
-      gg::cp_async16(gs + r * ldg + o, c >= 0 ? g + (size_t)c * cout + o : g,
-                     c >= 0);
-    }
-    for (int v = tid; v < BM * (cin / 8); v += nthreads) {
-      const int r = v / (cin / 8);
-      const int i = (v - r * (cin / 8)) * 8;
-      const int p = sp[t * BM + r];
-      gg::cp_async16(xs + r * ldx + i, p >= 0 ? x + (size_t)p * cin + i : x,
-                     p >= 0);
-    }
-  };
-
-  // dW tiles of this warp: d = warp and warp + nwarps (of cw * ow)
-  float accw[2][2][4][4];
-  gg::zero_acc(accw[0]);
-  gg::zero_acc(accw[1]);
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  load(0);
-  gg::cp_async_commit();
-  for (int t = 0; t < nt; ++t) {
-    if (t + 1 < nt) load(t + 1);
-    gg::cp_async_commit();
-    gg::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* gs = Gs + (t & 1) * BM * ldg;
-    const bf16* xs = Xs + (t & 1) * BM * ldx;
-    // y = g @ W[k]^T: this warp's 32 x 32 tile of the 64 x Cin output
-    {
-      const int wm = warp / cw;
-      const int wn = warp % cw;
-      float acc[2][4][4];
-      gg::zero_acc(acc);
-      for (int kk = 0; kk < cout; kk += 16) {
-        unsigned af[2][4], bfr[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          gg::ldsm_x4(af[i], gs + (wm * 32 + i * 16 + (lane & 15)) * ldg +
-                                 kk + (lane >> 4) * 8);
-        gg::load_b_nk(bfr, Ws + wn * 32 * ldg + kk, ldg, lane);
-        gg::mma_tile(acc, af, bfr);
-      }
-      const int* crow = sc + t * BM;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int c = crow[wm * 32 + i * 16 + gq + h * 8];
-            if (c >= 0)
-              *reinterpret_cast<float2*>(y + (size_t)c * cin + wn * 32 +
-                                         q * 8 + tq * 2) =
-                  make_float2(acc[i][q][2 * h], acc[i][q][2 * h + 1]);
-          }
-    }
-    // dW[k] += x^T g over the tile's 64 rows
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int d = warp + s * nwarps;
-      if (d >= cw * ow) continue;
-      const int dm = d / ow;
-      const int dn = d % ow;
-#pragma unroll
-      for (int kk = 0; kk < BM; kk += 16) {
-        unsigned af[2][4], bfr[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          gg::ldsm_x4_t(af[i],
-                        xs + (kk + (lane & 7) + ((lane >> 4) << 3)) * ldx +
-                            dm * 32 + i * 16 + ((lane >> 3) & 1) * 8);
-        gg::load_b(bfr, gs + kk * ldg + dn * 32, ldg, lane);
-        gg::mma_tile(accw[s], af, bfr);
-      }
-    }
-    __syncthreads();  // the next load overwrites this stage
-  }
-  gg::cp_async_wait<0>();
-
-  float* part = dw_part + ((size_t)k * chunks + j) * cin * cout;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int d = warp + s * nwarps;
-    if (d >= cw * ow) continue;
-    const int dm = d / ow;
-    const int dn = d % ow;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(
-              part + (size_t)(dm * 32 + i * 16 + gq + h * 8) * cout +
-              dn * 32 + q * 8 + tq * 2) =
-              make_float2(accw[s][i][q][2 * h], accw[s][i][q][2 * h + 1]);
-  }
-}
-
-// dx[p] = bf16(sum over the offsets k that p holds, in order, of
-// y[fwd[k, p]]), 4 channels a thread; padded parents hold none: 0
-__global__ void up_dx_reduce_kernel(const float* __restrict__ y,
-                                    const int32_t* __restrict__ fwd,
-                                    const int32_t* __restrict__ nbr_mask,
-                                    bf16* __restrict__ dx, int parent_cap,
-                                    int cin) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int vec = cin / 4;
-  if (i >= (size_t)parent_cap * vec) return;
-  const int p = static_cast<int>(i / vec);
-  const int c4 = static_cast<int>(i % vec) * 4;
-  const int m = nbr_mask[p];
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = 0; k < 8; ++k)
-    if ((m >> k) & 1) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          y + (size_t)fwd[(size_t)k * parent_cap + p] * cin + c4);
-      s.x += v.x;
-      s.y += v.y;
-      s.z += v.z;
-      s.w += v.w;
-    }
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(dx + (size_t)p * cin +
-                                                        c4);
-  o[0] = __floats2bfloat162_rn(s.x, s.y);
-  o[1] = __floats2bfloat162_rn(s.z, s.w);
-}
-
-// dw[k][i] = the used block partials of offset k, in order
-__global__ void up_dw_reduce_kernel(const float* __restrict__ part,
-                                    const int32_t* __restrict__ count,
-                                    float* __restrict__ dw, int plane,
-                                    int tpb, int chunks) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)8 * plane) return;
-  const int k = static_cast<int>(i / plane);
-  const int used = ((count[k] + BM - 1) / BM + tpb - 1) / tpb;
-  float s = 0.0f;
-  for (int j = 0; j < used; ++j)
-    s += part[((size_t)k * chunks + j) * plane + i % plane];
-  dw[i] = s;
-}
-
-int fused_smem_ok(size_t bytes) {
-  static size_t allowed = 48 * 1024;
-  if (bytes <= allowed) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      up_bwd_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess) allowed = bytes;
-  return static_cast<int>(err);
-}
-
 // the dynamic shared memory a launch needs; raised once per size
 int ensure_smem(size_t bytes) {
   static size_t allowed = 48 * 1024;
@@ -472,41 +256,3 @@ extern "C" int up_conv_fwd_bf16(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fused up-conv backward: y (child_cap, cin) and dw_part (8, chunks,
-// cin, cout) fp32 scratch; dx (parent_cap, cin) bf16; dw (8, cin, cout)
-// fp32.  chunks * tpb tiles must cover every segment (a bound: the parent
-// or child count).
-extern "C" int up_conv_bwd_fused_bf16(
-    const void* x, const void* g, const void* w, const void* child_parent,
-    const void* rows, const void* count, const void* fwd,
-    const void* nbr_mask, void* y, void* dw_part, void* dx, void* dw,
-    int parent_cap, int cin, int cout, int tpb, int chunks, void* stream) {
-  if (cin <= 0 || cout <= 0 || cin % 32 || cout % 32 || cin > 256 ||
-      cout > 256 || tpb <= 0 || chunks <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = ((size_t)cin * (cout + 8) + 2 * BM * (cout + 8) +
-                       2 * BM * (cin + 8)) * 2 + (size_t)2 * tpb * BM * 4;
-  int err = fused_smem_ok(smem);
-  if (err) return err;
-  up_bwd_fused_kernel<<<dim3(chunks, 8), 2 * cin, smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(w), static_cast<const int32_t*>(child_parent),
-      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(count),
-      static_cast<float*>(y), static_cast<float*>(dw_part), cin, cout, tpb,
-      chunks);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const size_t n = (size_t)parent_cap * (cin / 4);
-  up_dx_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(y), static_cast<const int32_t*>(fwd),
-      static_cast<const int32_t*>(nbr_mask), static_cast<bf16*>(dx),
-      parent_cap, cin);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const size_t m = (size_t)8 * cin * cout;
-  up_dw_reduce_kernel<<<(unsigned)((m + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(dw_part), static_cast<const int32_t*>(count),
-      static_cast<float*>(dw), cin * cout, tpb, chunks);
-  return static_cast<int>(cudaGetLastError());
-}

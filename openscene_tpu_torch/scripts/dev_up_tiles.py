@@ -19,11 +19,7 @@ at MinkUNet18A's four up-conv widths, times
   ``dx`` (``gather_gemm_fwd.cu`` with the edge's skip plan, ``W[k]^T`` read
   in the kernel) under every legal row tile, column tile and offset-group
   count, ``dW`` (``gather_gemm_bwd.cu`` over the groups) under every legal
-  tile and row split; and against one fused launch over the children
-  (``up_conv_fwd.cu:up_conv_bwd_fused_bf16``: each tile's cotangent rows
-  gathered once for both products, per-child fp32 ``dx`` shares and
-  per-block ``dW`` partials reduced in order after it) under its legal
-  tiles-per-block counts, held to the plain version like the wrapper.
+  tile and row split.
 
 Each line is one JSON object of device milliseconds with the host's
 enqueue hidden (``timing.device_time_ms``); the wrappers' lines also give
@@ -37,13 +33,11 @@ Run on the card: ``python -m openscene_tpu_torch.scripts.dev_up_tiles
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 
 import torch
 
-from ..sparse import _build
 from ..sparse import edge_conv as ec
 from ..sparse import stencil_conv as sc
 from ..sparse.geometry import _bucket, _pad_level, level_counts
@@ -101,35 +95,6 @@ def wgrad_configs(rows, cin, cout):
                 if cfg not in out and cfg[3] <= 65535:
                     out.append(cfg)
     return out
-
-
-def fused_up_bwd(x, wb, g, plan, tpb):
-    """``(dx, dW)`` of the up conv by the fused launch over the children
-    (``csrc/up_conv_fwd.cu:up_conv_bwd_fused_bf16``) with ``tpb`` tiles a
-    block."""
-    lib = _build.load("up_conv_fwd")
-    fn = lib.up_conv_bwd_fused_bf16
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    pcap, cin = x.shape
-    ccap, cout = g.shape
-    chunks = -(-(-(-min(pcap, ccap) // ec.EDGE_TILE)) // tpb)
-    y = torch.empty((ccap, cin), dtype=torch.float32, device=x.device)
-    part = torch.empty((8, chunks, cin, cout), dtype=torch.float32,
-                       device=x.device)
-    dx = torch.empty((pcap, cin), dtype=torch.bfloat16, device=x.device)
-    dw = torch.empty((8, cin, cout), dtype=torch.float32, device=x.device)
-    err = fn(x.data_ptr(), g.data_ptr(), wb.data_ptr(),
-             plan.child_parent.data_ptr(), plan.groups.rows.data_ptr(),
-             plan.groups.count.data_ptr(), plan.fwd.data_ptr(),
-             plan.skip.nbr_mask.data_ptr(), y.data_ptr(), part.data_ptr(),
-             dx.data_ptr(), dw.data_ptr(), pcap, cin, cout, tpb, chunks,
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"up_conv_bwd_fused launch failed: cudaError {err}")
-    return dx, dw
 
 
 def sweep(geo, iters, seed=0):
@@ -201,22 +166,6 @@ def sweep(geo, iters, seed=0):
             return (sc.gather_gemm_cuda(g, w.transpose(1, 2), plan.fwd),
                     sc.gather_wgrad_cuda(x, g, plan.fwd))
 
-        for tpb in (1, 2, 4, 8, 16):
-            fdx, fdw = fused_up_bwd(x, wb, g, plan, tpb)
-            fx = (fdx.float() - dx_p.float()).abs().max().item()
-            fw = (fdw - dw_p).abs().max().item()
-            if not (fx <= BF16_ULP * dx_p.float().abs().max().item()
-                    and fw <= 1e-4 * dw_p.abs().max().item()
-                    and not fdx[parent.num:].any()):
-                raise AssertionError(f"{base}: the fused backward (tpb {tpb})"
-                                     f" differs from the plain version: dx "
-                                     f"{fx}, dW {fw}")
-            print(json.dumps({**base, "kernel": "up_conv_bwd fused",
-                              "tpb": tpb, "dx_max_abs_err": fx,
-                              "dw_max_abs_err": fw,
-                              "device_ms": device_time_ms(
-                                  lambda: fused_up_bwd(x, wb, g, plan, tpb),
-                                  iters)}), flush=True)
         print(json.dumps({**base, "kernel": "up_conv_bwd",
                           "dx_max_abs_err": err_x, "dw_max_abs_err": err_w,
                           "wrapper_device_ms": device_time_ms(

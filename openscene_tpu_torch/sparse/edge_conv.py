@@ -22,8 +22,8 @@ Counterpart of ``openscene_tpu/sparse/pallas_edge.py``:
   x^T @ g[fwd[k]]`` (wrapper ``up_conv_bwd``).  The JAX package's model
   takes a dense route forward instead (per-offset GEMMs on the parent level
   and one placement gather, ``ops.sparse_up_conv``), measured faster on
-  its TPU; on the H100 kernel 5 is faster at every edge of MinkUNet18A
-  (PERF.md), so the port has one route.
+  its TPU; on an NVIDIA H100 80GB HBM3 at 700 W kernel 5 is faster at
+  every edge of MinkUNet18A (PERF.md), so the port has one route.
 
 The up conv's kernels read two layouts of the edge, built once per batch
 with the plans (:func:`with_edge_layouts`, in both geometry paths): the
@@ -60,7 +60,8 @@ _LIB_UP = "up_conv_fwd"
 EDGE_TILE = 64
 # up_tiles: tiles per block for about UP_TARGET_BLOCKS blocks (fitted to
 # scripts/dev_up_tiles.py on the card), at most UP_MAX_TPB; a block's
-# shared memory at most UP_SMEM bytes (the H100's 227 KB)
+# shared memory at most UP_SMEM bytes (227 KB a block on an NVIDIA H100
+# 80GB HBM3, 700 W)
 UP_TARGET_BLOCKS = 300
 UP_MAX_TPB = 16
 UP_SMEM = 232448
