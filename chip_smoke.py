@@ -18,7 +18,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    ``torch.matmul``, the im2col formulation, which the port never calls):
    device times with the host's enqueue hidden behind a sleep kernel, and
    the kernel's and the library call's host-inclusive times of back-to-back
-   calls beside them;
+   calls beside them.  The down conv's kernels (3 and 6) run at MinkUNet18A's
+   four edges on the edge's own layouts, each beside its launches alone
+   and the design it replaced (``scripts/dev_down_tiles.py``);
 3. builds the first train batch's geometry on the card from its level-0
    coordinates, with the occupancy grid and with the search path (stem
    occupancy on), and requires every array to equal the NumPy builder's for
@@ -43,9 +45,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (about 125k voxels each), random weights from a seed and pseudo text
    embeddings.  Every kernel's launch counter is set to 0 just before each
    run and read just after: each stencil-conv kernel must launch 32 times
-   and the down-conv and up-conv kernels 4 times each per scene forward.  The outputs must be
-   finite, and one scene's logits from the kernel path must match the same
-   model run through the plain versions on the card;
+   and the down-conv and up-conv kernels 4 times each per scene forward.
+   The outputs must be finite, and one scene's logits from the kernel path
+   must match the same model run through the plain versions on the card;
 6. drives the training path: ``runtime.distill.DistillTrainer`` on ``cuda``
    (device geometry ``auto``, so on), MinkUNet18A, 768-d, cosine loss,
    bf16, batches of 2 synthetic train scenes at 2 cm (about 270k voxels),
@@ -56,8 +58,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    Losses must be finite and the third below the first.  One step through
    device geometry and one through host geometry on the same batch, caps
    and starting state must give the same loss and gradients exactly.  Each
-   is profiled once, and the conv kernels' device ms are printed, the two
-   gather-GEMM sources' beside the previous design's.  Then
+   is profiled once, and the conv kernels' device ms are printed (every
+   instantiation of each template: ``up_conv_fwd_kernel`` counts the up
+   conv's forward and the down conv's ``dx``), the two gather-GEMM
+   sources' beside the previous design's.  Then
    one more step runs from the same model and optimizer state through the
    kernels, through the plain versions, and through the plain versions in
    fp32: the loss and the updated parameters of the first two must agree,
@@ -98,6 +102,8 @@ DOWNS_PER_FORWARD = 4
 UPS_PER_FORWARD = 4
 # MinkUNet18A's up convs, (Cin, Cout) by edge: level e+1 -> level e
 UP_WIDTHS = ((96, 96), (128, 96), (128, 128), (256, 128))
+# its down convs' widths (Cin = Cout) by edge: level e -> level e+1
+DOWN_WIDTHS = (32, 32, 64, 128)
 TRAIN_BATCH = 2
 TRAIN_STEPS = 3
 DW_TOL = 1e-4               # weight gradients: fraction of max|plain dW|
@@ -120,11 +126,15 @@ REPLACES = {
     "pack_pairs_t": "scripts/dev_pack_bench.py:42"}
 FWD_SOURCE = "openscene_tpu_torch/csrc/gather_gemm_fwd.cu"
 BWD_SOURCE = "openscene_tpu_torch/csrc/gather_gemm_bwd.cu"
+UP_SOURCE = "openscene_tpu_torch/csrc/up_conv_fwd.cu"
 SOURCES = {"stencil_conv_fwd": FWD_SOURCE, "down_conv_fwd": FWD_SOURCE,
            "stencil_conv_bwd": BWD_SOURCE, "up_conv_bwd": BWD_SOURCE,
-           "down_conv_bwd": BWD_SOURCE,
-           "up_conv_fwd": "openscene_tpu_torch/csrc/up_conv_fwd.cu",
+           "down_conv_bwd": BWD_SOURCE, "up_conv_fwd": UP_SOURCE,
            "pack_pairs_t": "openscene_tpu_torch/csrc/pack_pairs_t.cu"}
+# the backward wrappers' dx launches
+ALSO_LAUNCHES = {"stencil_conv_bwd": FWD_SOURCE + " (dx)",
+                 "up_conv_bwd": FWD_SOURCE + " (dx)",
+                 "down_conv_bwd": UP_SOURCE + " (dx, W_NK)"}
 
 
 def log(*a):
@@ -192,12 +202,14 @@ def train_config(d3, dfeat):
                   save_path=os.path.join(HERE, "build", "smoke_exp"))
 
 
-def bound(K, rows_in, rows_out, pairs, cin, cout):
+def bound(K, rows_in, rows_out, pairs, cin, cout, n_idx=None):
     """Least time on an H100 SXM for (rows_in, cin) -> (rows_out, cout):
-    each input row read once, each output row written once, K index entries
-    per output row, the bf16 weights; 2*cin*cout operations per (offset,
-    row) pair.  Returns (ms, "bytes" or "operations")."""
-    nbytes = (rows_in * cin + rows_out * cout) * 2 + K * rows_out * 4 \
+    each input row read once, each output row written once, ``n_idx`` int32
+    index entries (by default K per output row), the bf16 weights;
+    2*cin*cout operations per (offset, row) pair.  Returns (ms, "bytes" or
+    "operations")."""
+    n_idx = K * rows_out if n_idx is None else n_idx
+    nbytes = (rows_in * cin + rows_out * cout) * 2 + n_idx * 4 \
         + K * cin * cout * 2
     flops = 2.0 * pairs * cin * cout
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -205,13 +217,19 @@ def bound(K, rows_in, rows_out, pairs, cin, cout):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_case(name, wrapper, plain, x, w, idx, n_in, n_out):
-    """Compare one kernel with its plain version and time both."""
+def kernel_case(name, wrapper, plain, x, w, arg, idx, n_in, n_out,
+                also=None, idx_per_pair=False):
+    """Compare one kernel with its plain version and time both: the wrapper
+    and the plain version take ``(x, w, arg)``, ``idx`` is the gather plan
+    (K, rows_out) of the im2col yardstick and of the bound; ``also``:
+    {key: closure} timed beside them (a launch alone, a replaced design);
+    ``idx_per_pair``: the data's bound reads one index entry per neighbour
+    pair (an edge: one per child), not K per output row."""
     import torch
     K, cin, cout = w.shape
-    out = wrapper(x, w, idx)
-    ref = plain(x, w, idx)
-    again = wrapper(x, w, idx)
+    out = wrapper(x, w, arg)
+    ref = plain(x, w, arg)
+    again = wrapper(x, w, arg)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = BF16_ULP * ref.float().abs().max().item()
@@ -234,27 +252,34 @@ def kernel_case(name, wrapper, plain, x, w, idx, n_in, n_out):
     # neighbour exists; the dense bound counts every row of the caps and
     # all K offsets, the work the kernel's design does
     pairs = int((idx[:, :n_out] < n_in).sum().item())
-    bound_ms, bound_by = bound(K, n_in, n_out, pairs, cin, cout)
+    bound_ms, bound_by = bound(K, n_in, n_out, pairs, cin, cout,
+                               pairs if idx_per_pair else None)
     dense_ms, dense_by = bound(K, x.shape[0], rows, K * rows, cin, cout)
     return {"shape": f"K={K} {cin}->{cout} rows_in={x.shape[0]} "
                      f"rows_out={rows} (valid {n_in}->{n_out}, "
                      f"{pairs} neighbour pairs)",
             "max_abs_err": err, "tol": tol, "deterministic": True,
-            "ms": device_ms(lambda: wrapper(x, w, idx)),
-            "host_ms": cuda_time_ms(lambda: wrapper(x, w, idx)),
-            "plain_ms": device_ms(lambda: plain(x, w, idx), iters=5),
+            "ms": device_ms(lambda: wrapper(x, w, arg)),
+            "host_ms": cuda_time_ms(lambda: wrapper(x, w, arg)),
+            "plain_ms": device_ms(lambda: plain(x, w, arg), iters=5),
             "library_ms": device_ms(im2col, iters=5),
             "library_host_ms": cuda_time_ms(im2col, iters=5),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "dense_bound_ms": dense_ms, "dense_bound_by": dense_by}
+            "dense_bound_ms": dense_ms, "dense_bound_by": dense_by,
+            **{k: device_ms(fn) for k, fn in (also or {}).items()}}
 
 
 def kernels_phase(geo):
-    """Each kernel at the main path's shapes, on scene 0's geometry."""
+    """Each forward kernel at the main path's shapes, on scene 0's
+    geometry: the stencil conv with each level's skip plan, the down conv at
+    the four edges with the edge's skip plan."""
     import torch
+    from openscene_tpu_torch.scripts.dev_down_tiles import replaced_down_fwd
     from openscene_tpu_torch.sparse.edge_conv import (down_conv_fwd,
-                                                      down_conv_plain)
-    from openscene_tpu_torch.sparse.stencil_conv import (stencil_conv_fwd,
+                                                      down_conv_plain,
+                                                      down_tiles)
+    from openscene_tpu_torch.sparse.stencil_conv import (launch_gather_gemm,
+                                                         stencil_conv_fwd,
                                                          stencil_conv_plain)
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -274,21 +299,33 @@ def kernels_phase(geo):
         skip = geo.self3[level].skip
         if skip is None:
             raise AssertionError(f"level {level}: the plan has no skip plan")
+        fwd = geo.self3[level].fwd
         stencil.append(kernel_case(
             "stencil_conv_fwd",
             functools.partial(stencil_conv_fwd, skip=skip),
             stencil_conv_plain, acts(level, cin), weights(27, cin, cout),
-            geo.self3[level].fwd, n, n))
+            fwd, fwd, n, n))
     # the k=5 stem on colour input (off the main path, whose input is the
     # constant feature): 3 channels zero-padded to 8, K = 125
     n = geo.levels[0].num
     stencil.append(kernel_case(
         "stencil_conv_fwd", stencil_conv_fwd, stencil_conv_plain,
-        acts(0, 8), weights(125, 8, 32), geo.stem.fwd, n, n))
-    down = [kernel_case(
-        "down_conv_fwd", down_conv_fwd, down_conv_plain, acts(0, 32),
-        weights(8, 32, 32), geo.down[0].fwd, geo.levels[0].num,
-        geo.levels[1].num)]
+        acts(0, 8), weights(125, 8, 32), geo.stem.fwd, geo.stem.fwd, n, n))
+    down = []
+    for edge, c in enumerate(DOWN_WIDTHS):
+        plan = geo.down[edge]
+        # the weight as DownConv hands it on: cast to bf16 once
+        x, wb = acts(edge, c), weights(8, c, c).to(torch.bfloat16)
+        *tiles, staged = down_tiles(plan.fwd.shape[1], c, c)
+        down.append(kernel_case(
+            "down_conv_fwd", down_conv_fwd, down_conv_plain, x, wb, plan,
+            plan.fwd, geo.levels[edge].num, geo.levels[edge + 1].num,
+            also={"launch_only_ms": lambda x=x, wb=wb, p=plan, t=tiles,
+                  s=staged: launch_gather_gemm(x, wb, p.fwd, p.skip, *t,
+                                               staged=s),
+                  "replaced_ms": lambda x=x, wb=wb, p=plan:
+                  replaced_down_fwd(x, wb, p)}, idx_per_pair=True))
+        down[-1]["shape"] = f"edge {edge} " + down[-1]["shape"]
     return {"stencil_conv_fwd": stencil, "down_conv_fwd": down}
 
 
@@ -345,9 +382,11 @@ def kernels_phase_bwd(geo):
     """Each backward wrapper at the train path's shapes, on the geometry of
     one train batch."""
     import torch
+    from openscene_tpu_torch.scripts.dev_down_tiles import replaced_down_bwd
     from openscene_tpu_torch.sparse.edge_conv import (
-        EDGE_TILE, down_conv_bwd, down_conv_bwd_plain, up_conv_bwd,
-        up_conv_bwd_plain, up_dx_tiles, up_wgrad_tiles)
+        EDGE_TILE, down_conv_bwd, down_conv_bwd_plain, down_dx_tiles,
+        down_wgrad_tiles, launch_up_conv, up_conv_bwd, up_conv_bwd_plain,
+        up_dx_tiles, up_wgrad_tiles)
     from openscene_tpu_torch.sparse.stencil_conv import (
         gather_gemm_cuda, gather_wgrad_cuda, launch_gather_wgrad,
         stencil_conv_bwd, stencil_conv_bwd_plain)
@@ -437,16 +476,17 @@ def kernels_phase_bwd(geo):
             replaced_ms=device_ms(replaced))
         up.append(case)
 
-    for edge in (0, 1):
+    for edge, c in enumerate(DOWN_WIDTHS):
         plan = geo.down[edge]
         child, parent = geo.levels[edge], geo.levels[edge + 1]
         nc, np_, ccap, pcap = child.num, parent.num, child.cap, parent.cap
         what = (f"child rows {ccap} (valid {nc}), parent rows {pcap} "
                 f"(valid {np_})")
         # down conv: x on the children, g on the parents
-        cin, cout = 32, 32
+        cin = cout = c
         x, g, w = acts(edge, cin), acts(edge + 1, cout), weights(8, cin, cout)
         wt = w.transpose(1, 2).to(bf16)
+        wb = w.to(bf16)
 
         def library(x=x, g=g, plan=plan, wt=wt, cin=cin, pcap=pcap):
             y = torch.matmul(g.unsqueeze(0), wt).reshape(-1, cin)
@@ -454,14 +494,28 @@ def kernels_phase_bwd(geo):
                 0, plan.child_offset.long() * pcap + plan.child_parent)
             return dx, torch.matmul(gathered(x, plan.fwd).transpose(1, 2), g)
 
-        down.append(bwd_case(
+        case = bwd_case(
             "down_conv_bwd",
-            lambda x=x, w=w, g=g, p=plan: down_conv_bwd(x, w, g, p),
-            lambda x=x, w=w, g=g, p=plan: down_conv_bwd_plain(x, w, g, p),
-            library, nc, f"K=8 {cin}->{cout} {what}",
-            (bound_bwd(nc, np_, 8 * np_ + 2 * nc, nc, 8, cin, cout),
-             bound_bwd(ccap, pcap, 8 * pcap + 2 * ccap, 8 * pcap, 8, cin,
-                       cout))))
+            lambda x=x, w=wb, g=g, p=plan: down_conv_bwd(x, w, g, p),
+            lambda x=x, w=wb, g=g, p=plan: down_conv_bwd_plain(x, w, g, p),
+            library, nc, f"edge {edge} K=8 {cin}->{cout} {what}",
+            # the data's bound reads the edge's map once: child_parent and
+            # the grouped rows, two entries per child; the dense one, the
+            # (8, parent) plan
+            (bound_bwd(nc, np_, 2 * nc, nc, 8, cin, cout),
+             bound_bwd(ccap, pcap, 8 * pcap, 8 * pcap, 8, cin, cout)))
+        # its two launches apart, and the design it replaced
+        case.update(
+            dx_ms=device_ms(lambda g=g, p=plan: launch_up_conv(
+                g, wb, p.child_parent, p.groups,
+                *down_dx_tiles(ccap, cin, cout), w_nk=True)),
+            dw_ms=device_ms(lambda x=x, g=g, p=plan: launch_gather_wgrad(
+                g, x, None, (p.groups.rows, p.groups.count),
+                *down_wgrad_tiles(pcap, cin, cout), amap=p.child_parent,
+                seg_tile=EDGE_TILE)),
+            replaced_ms=device_ms(lambda x=x, g=g, p=plan:
+                                  replaced_down_bwd(x, wb, g, p)))
+        down.append(case)
     return {"stencil_conv_bwd": stencil, "up_conv_bwd": up,
             "down_conv_bwd": down}
 
@@ -758,8 +812,10 @@ def profile_device(fn, what):
 def conv_kernel_ms(rows):
     """{kernel: (launches, device ms)} of the two gather-GEMM sources'
     kernels in a profile (the offset groups' and the row splits' partial
-    sums have a reduce each; they also run the up conv's dx and dW) and of
-    kernel 5."""
+    sums have a reduce each; they also run the up conv's dx and both convs'
+    dW) and of ``csrc/up_conv_fwd.cu``: every instantiation of each
+    template, so ``up_conv_fwd_kernel`` counts the up conv's forward and
+    the down conv's dx (``W_NK``), 8 launches per train step."""
     out = {}
     for name in ("gather_gemm_fwd_kernel", "reduce_groups_kernel",
                  "gather_wgrad_kernel", "reduce_partials_kernel",
@@ -1158,13 +1214,14 @@ def main():
                      else "")
                   + (", bit-equal" if name == "pack_pairs_t" else
                      f", max err {c['max_abs_err']:.3e}")
-                  + (f", launch alone {c['launch_only_ms']:.4f}, groups' "
-                     f"build alone {c['groups_build_ms']:.4f}"
+                  + (f", launch alone {c['launch_only_ms']:.4f}"
+                     if "launch_only_ms" in c else "")
+                  + (f", groups' build alone {c['groups_build_ms']:.4f}"
                      if "groups_build_ms" in c else "")
                   + (f", dx alone {c['dx_ms']:.4f}, dW alone "
-                     f"{c['dw_ms']:.4f}, the replaced dense design "
-                     f"{c['replaced_ms']:.4f}" if "replaced_ms" in c
-                     else "")
+                     f"{c['dw_ms']:.4f}" if "dx_ms" in c else "")
+                  + (f", the replaced design {c['replaced_ms']:.4f}"
+                     if "replaced_ms" in c else "")
                   + (f", dW err {c['dw_max_abs_err']:.3e} of tol "
                      f"{c['dw_tol']:.3e}" if "dw_tol" in c else "")
                   + f" [{card}]", flush=True)
@@ -1245,7 +1302,9 @@ def main():
             print(f"profiler[{what}]: device busy {busy:.3f} ms in the "
                   f"profiled train step (unprofiled step "
                   f"{t_step * 1e3:.1f} ms, {int(praw.num)} voxels); conv "
-                  f"kernels {json.dumps(conv)} (launches, ms): the two "
+                  f"kernels {json.dumps(conv)} (launches, ms; "
+                  f"up_conv_fwd_kernel: the up conv's forward and the down "
+                  f"conv's dx): the two "
                   f"gather-GEMM sources {gemm:.3f} ms against the "
                   f"dense design's {DENSE_DESIGN_TRAIN_CONV_MS[0]} + "
                   f"{DENSE_DESIGN_TRAIN_CONV_MS[1]} ms [{card}]", flush=True)
@@ -1284,7 +1343,7 @@ def main():
         elif name in main_launches:
             entry["main_path"] = "scripts/dev_pack_bench.py:bench_pack"
         else:
-            entry["also_launches"] = FWD_SOURCE + " (dx)"
+            entry["also_launches"] = ALSO_LAUNCHES[name]
         kernels.append(entry)
     print(f"skip plans: {json.dumps(skip_stats)}", flush=True)
     print(f"geometry: {json.dumps(geo_stats)}; host assembly ms raw "

@@ -7,9 +7,9 @@
 // int32 (a negative entry contributes zero); dw: (K, Ca, Cb) fp32.  Every
 // product of two bf16 values is exact in fp32 and the sums are kept in fp32.
 //
-// Together with the gather-GEMM-sum of csrc/gather_gemm_fwd.cu, which
-// computes the input gradient dx of each backward from the same gathered
-// operand, this source replaces three Pallas TPU kernels of the JAX package:
+// Together with the kernels that compute each backward's input gradient dx
+// (csrc/gather_gemm_fwd.cu, csrc/up_conv_fwd.cu), this source replaces
+// three Pallas TPU kernels of the JAX package:
 //   * openscene_tpu/sparse/pallas_conv.py:447 make_bwd_kernel (k=3 stencil
 //     backward, op _wconv_bwd :695-762).  With G_k = g[fwd[k]]:
 //       dx = sum_k G_k @ W[flip k]^T       gather_gemm_fwd(g, W[flip]^T, fwd)
@@ -24,9 +24,11 @@
 //   * openscene_tpu/sparse/pallas_edge.py:522 make_up_bwd_kernel (down-conv
 //     backward over children, op _down_conv_bwd :727-756):
 //       dx[c] = g[parent(c)] @ W[offset(c)]^T
-//                                          gather_gemm_fwd over the index
-//                                          where(offset(c) == k, parent(c), -1)
-//       dW[k]^T = g^T @ x[fwd[k]]          this kernel, a = g_parent, b = x_child
+//                                          csrc/up_conv_fwd.cu with W_NK over
+//                                          the edge's groups
+//       dW[k]^T = sum over the children c of offset k of g[parent(c)]^T x[c]
+//                                          this kernel in group mode, a =
+//                                          g_parent, b = x_child
 // The TPU kernels' window plans, spill lists, pair packing and channel
 // permutations are layouts of the TPU's memory system and are not carried
 // over: both CUDA kernels read the plain index plans.
@@ -43,12 +45,12 @@
 //   * Skip mode (a ConvSkip of the plan, K <= 31): offset k reduces only
 //     over its compacted rows pair_rows[k][0 .. pair_count[k]), the rows
 //     whose neighbour exists, so no missing pair is gathered or multiplied.
-//     Group mode (the up conv, an EdgeGroups of the edge and amap =
+//     Group mode (the edge convs, an EdgeGroups of the edge and amap =
 //     child_parent): offset k reduces over its own children, the segment
 //     of pair_rows that starts at seg_tile * sum_{j<k} ceil(pair_count[j] /
 //     seg_tile); each entry is b's row (the child) and amap of it a's row
 //     (the parent), so only the pairs that exist are read.  Dense mode (no
-//     skip plan, the down conv's edges): every row.
+//     skip plan: the K = 125 stem): every row.
 //   * Grid (Ca tile x Cb tile, k, split).  Split s covers pair positions
 //     [s*per, (s+1)*per) of its offset; the splits are sized on the host
 //     from a bound on every count (the level's rows), so no count is read

@@ -13,15 +13,22 @@
 //     conv forward (K = 27, idx = ConvPlan.fwd); also serves K = 125 (the k=5
 //     stem when the input carries colour);
 //   * openscene_tpu/sparse/pallas_edge.py:make_down_kernel — the k=2 s=2
-//     down-conv forward (K = 8, idx = DownPlan.fwd, rows_out = parent_cap).
-// The same kernel computes the input gradient dx of every conv backward, on
-// the cotangent with transposed weights (csrc/gather_gemm_bwd.cu lists the
-// three forms); the up conv's dx reads the forward's W with w_nk, and the
-// edge's skip plan (sparse/types.py:EdgeSkip, parents sorted by which
-// children they hold) in place of a ConvSkip.  The TPU kernels' row windows, window plans, 128-lane
-// crossbar gathers, bf16 pair packing and spill lists exist for the TPU's
-// memory system and are not carried over: this kernel reads the plain index
-// plan, and a missing neighbour points into the all-zero padding rows
+//     down-conv forward (K = 8, idx = DownPlan.fwd, rows_out = parent_cap),
+//     in skip mode on the edge's skip plan (sparse/types.py:EdgeSkip,
+//     parents sorted by which children they hold): a parent holds about 2.4
+//     of its 8 children on 2 cm scans, so a tile multiplies only the
+//     offsets its parents hold.  At MinkUNet18A's edge 0 (32 -> 32) on a
+//     120,695-voxel scene: bound 0.0035 ms, 0.0162 ms measured on an
+//     NVIDIA H100 80GB HBM3 at 700 W (PERF.md), 0.0265 for every offset at
+//     every parent.
+// The same kernel computes the input gradient dx of the stencil conv and of
+// the up conv, on the cotangent with transposed weights
+// (csrc/gather_gemm_bwd.cu lists the forms); the up conv's dx reads the
+// forward's W with w_nk, and the edge's skip plan in place of a ConvSkip.
+// The TPU kernels' row windows, window plans, 128-lane crossbar gathers,
+// bf16 pair packing and spill lists exist for the TPU's memory system and
+// are not carried over: this kernel reads the plain index plan, and a
+// missing neighbour points into the all-zero padding rows
 // [num, cap) of x.  A negative index is read as a zero row.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16), counted by
@@ -43,8 +50,8 @@
 //     with no neighbour (padded rows included) come out exactly zero, and
 //     each row's fp32 sum runs in a fixed order: the result is
 //     deterministic, with no atomics.
-//   * Dense mode (no skip plan: the K = 125 stem and the K = 8 edges): the
-//     identity order and every offset, indices read as the rows are loaded.
+//   * Dense mode (no skip plan: the K = 125 stem): the identity order and
+//     every offset, indices read as the rows are loaded.
 //   * Tiles: BM = 32, 64 or 128 rows by BN = 32..256 columns (a multiple of
 //     32 chosen to fit Cout, so a block gathers each row once); one warp per
 //     32 x 32 sub-tile, 2 x 4 mma.sync m16n8k16 bf16 products per 16-deep
@@ -82,7 +89,10 @@ constexpr int LDA = BK + 8;      // padded row stride of the gathered tile
 // W_NK: W[k] stored (cout, cin) and read transposed.  A template argument:
 // as a runtime flag it slowed the plain layout's stencil forward by about a
 // third at L0 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
-template <bool W_NK>
+// STAGED: the finished tile is rounded, staged in shared memory and written
+// as 16-byte row vectors, not from the mma fragments in 4-byte pieces (one
+// offset group only).
+template <bool W_NK, bool STAGED>
 __global__ void __launch_bounds__(MAX_THREADS)
 gather_gemm_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                        const int32_t* __restrict__ idx,
@@ -236,6 +246,32 @@ gather_gemm_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   // or with offset groups its fp32 partial, added by reduce_groups_kernel
   const int g = lane >> 2;
   const int tq = lane & 3;
+  if constexpr (STAGED) {
+    // the tile (bm x ldb, over the ring, which every warp is done with)
+    // rounded once, then each row's slab stored by neighbouring threads
+    __syncthreads();
+    bf16* Cs = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(
+              Cs + (wm * 32 + i * 16 + g + h * 8) * ldb + wn * 32 + t * 8 +
+              tq * 2) = __floats2bfloat162_rn(acc[i][t][2 * h],
+                                              acc[i][t][2 * h + 1]);
+    __syncthreads();
+    for (int v = tid; v < bm * vpr; v += nthreads) {
+      const int j = v / vpr;
+      const int nn = (v - j * vpr) * 8;
+      const int r = srow[j];
+      if (r >= 0 && n0 + nn < cout)
+        *reinterpret_cast<uint4*>(out + (size_t)r * cout + n0 + nn) =
+            *reinterpret_cast<const uint4*>(Cs + j * ldb + nn);
+    }
+    return;
+  }
   float* pg = part ? part + (size_t)group * rows_out * cout : nullptr;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
@@ -273,18 +309,18 @@ __global__ void reduce_groups_kernel(const float2* __restrict__ part,
 }
 
 // the dynamic shared memory a launch needs; raised once per size
-template <bool W_NK>
+template <bool W_NK, bool STAGED>
 int ensure_smem(size_t bytes) {
   static size_t allowed = 48 * 1024;
   if (bytes <= allowed) return 0;
   const cudaError_t err = cudaFuncSetAttribute(
-      gather_gemm_fwd_kernel<W_NK>,
+      gather_gemm_fwd_kernel<W_NK, STAGED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err == cudaSuccess) allowed = bytes;
   return static_cast<int>(err);
 }
 
-template <bool W_NK>
+template <bool W_NK, bool STAGED>
 int launch(const void* x, const void* w, const void* idx, const void* order,
            const void* tile_mask, const void* nbr_mask, void* part, void* out,
            int rows_out, int K, int cin, int cout, int bm, int bn,
@@ -293,10 +329,11 @@ int launch(const void* x, const void* w, const void* idx, const void* order,
   const int b_stage = W_NK ? bn * LDA : BK * (bn + 8);
   const size_t smem = (size_t)STAGES * (bm * LDA + b_stage) * 2 +
                       (size_t)(2 * bm + K + 2 + (nbr_mask ? K * bm : 0)) * 4;
-  const int err = ensure_smem<W_NK>(smem);
+  // the staged tile, bm x (bn+8), fits in the ring: bm <= STAGES*BK
+  const int err = ensure_smem<W_NK, STAGED>(smem);
   if (err) return err;
   const dim3 grid((rows_out + bm - 1) / bm, (cout + bn - 1) / bn, groups);
-  gather_gemm_fwd_kernel<W_NK><<<grid, threads, smem, st>>>(
+  gather_gemm_fwd_kernel<W_NK, STAGED><<<grid, threads, smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(order),
       static_cast<const int32_t*>(tile_mask),
@@ -312,27 +349,31 @@ int launch(const void* x, const void* w, const void* idx, const void* order,
 // bm, bn: multiples of 32, (bm/32)*(bn/32) <= 16 warps; tile_rows divides bm.
 // groups > 1 splits each tile's offsets over that many blocks, whose fp32
 // partials go to part (groups, rows_out, cout) and are added in order.
-// w_nk: w is (K, cout, cin), each W[k] read transposed.
+// w_nk: w is (K, cout, cin), each W[k] read transposed.  staged: the
+// staged 16-byte epilogue (groups == 1 only).
 extern "C" int gather_gemm_fwd_bf16(const void* x, const void* w,
                                     const void* idx, const void* order,
                                     const void* tile_mask,
                                     const void* nbr_mask, void* part,
                                     void* out, int rows_out, int K, int cin,
                                     int cout, int bm, int bn, int tile_rows,
-                                    int groups, int w_nk, void* stream) {
+                                    int groups, int w_nk, int staged,
+                                    void* stream) {
   const int threads = (bm / 32) * (bn / 32) * 32;
   if (bm <= 0 || bn <= 0 || bm % 32 || bn % 32 || threads > MAX_THREADS ||
-      tile_rows <= 0 || bm % tile_rows || (tile_mask && K > 31) ||
-      groups < 1 || groups > 64 || (groups > 1 && !part))
+      bm > STAGES * BK || tile_rows <= 0 || bm % tile_rows ||
+      (tile_mask && K > 31) || groups < 1 || groups > 64 ||
+      (groups > 1 && (!part || staged)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err =
-      w_nk ? launch<true>(x, w, idx, order, tile_mask, nbr_mask, part, out,
-                          rows_out, K, cin, cout, bm, bn, tile_rows, groups,
-                          st)
-           : launch<false>(x, w, idx, order, tile_mask, nbr_mask, part, out,
-                           rows_out, K, cin, cout, bm, bn, tile_rows, groups,
-                           st);
+  auto run = [&](auto fn) {
+    return fn(x, w, idx, order, tile_mask, nbr_mask, part, out, rows_out, K,
+              cin, cout, bm, bn, tile_rows, groups, st);
+  };
+  const int err = w_nk ? (staged ? run(launch<true, true>)
+                                 : run(launch<true, false>))
+                       : (staged ? run(launch<false, true>)
+                                 : run(launch<false, false>));
   if (err || groups == 1) return err;
   const size_t n = (size_t)rows_out * cout / 2;
   reduce_groups_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(

@@ -56,9 +56,9 @@ def _stencil_conv(x, w, plan: ConvPlan):
 
 
 def _edge_down_conv(x, w, plan: DownPlan):
-    """k=2 s=2 down conv: the CUDA kernels' wrappers on every edge."""
-    return DownConv.apply(x.contiguous(), w, plan.fwd, plan.child_parent,
-                          plan.child_offset)
+    """k=2 s=2 down conv: the CUDA kernels' wrappers on every edge, with the
+    plan's groups and skip plan."""
+    return DownConv.apply(x.contiguous(), w, plan)
 
 
 def _edge_up_conv(x, w, plan: DownPlan):

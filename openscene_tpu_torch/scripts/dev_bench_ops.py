@@ -146,7 +146,7 @@ def bench_ops(coords: np.ndarray, num: int, n_scenes: Optional[int] = None,
         plan = geo.down[e]
         c = DOWN_CH[e]
         x, g, w = acts(e, c), acts(e + 1, c), weights(8, c, c)
-        a, b = (x, w, plan.fwd), (x, w, g, plan)
+        a, b = (x, w, plan), (x, w, g, plan)
         rows.append({"op": f"E{e} down", "shape": f"{c}x{c}",
                      **timed(kernel_f=lambda: down_conv_fwd(*a),
                              kernel_fb=lambda: (down_conv_fwd(*a),

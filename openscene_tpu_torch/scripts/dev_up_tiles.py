@@ -79,18 +79,21 @@ def dx_configs(rows, cin, cout):
     return out
 
 
-def wgrad_configs(rows, cin, cout):
-    """Every legal (bma, bnb, per, splits) of the up-conv ``dW``, the
-    chooser's first."""
-    chosen = ec.up_wgrad_tiles(rows, cin, cout)
+def wgrad_configs(rows, ca, cb, chosen):
+    """Every legal (bma, bnb, per, splits) of a group-mode ``dW`` launch
+    over at most ``rows`` rows per offset (``a`` Ca wide, ``b`` Cb wide),
+    the chooser's pick ``chosen`` first; the splits tried include the one
+    ``wgrad_tiles`` picks under its default floor, ``WGRAD_MIN_ROWS``."""
     out = [chosen]
+    stencil = sc.wgrad_tiles(rows, 8, ca, cb, True)
+    pers = sorted({128, 192, 256, 384, 512, 1024, 2048, 4096, stencil[2]})
     fits = [[t for t in sc.WGRAD_TILES if -(-c // t) * t - c < t]
-            for c in (cin, cout)]
+            for c in (ca, cb)]
     for bma in fits[0]:
         for bnb in fits[1]:
             if (bma // 32) * (bnb // 32) > sc.MAX_WARPS:
                 continue
-            for per in (256, 512, 1024, 2048, 4096):
+            for per in pers:
                 cfg = (bma, bnb, per, -(-rows // per))
                 if cfg not in out and cfg[3] <= 65535:
                     out.append(cfg)
@@ -191,7 +194,9 @@ def sweep(geo, iters, seed=0):
                                       g, wb, plan.fwd, plan.skip, *cfg,
                                       w_nk=True), iters)}), flush=True)
         pairs = (plan.groups.rows, plan.groups.count)
-        for i, cfg in enumerate(wgrad_configs(parent.cap, cin, cout)):
+        for i, cfg in enumerate(wgrad_configs(
+                parent.cap, cin, cout,
+                ec.up_wgrad_tiles(parent.cap, cin, cout))):
             def launch(cfg=cfg):
                 return sc.launch_gather_wgrad(
                     x, g, None, pairs, *cfg, amap=plan.child_parent,

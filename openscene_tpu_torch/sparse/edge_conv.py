@@ -1,18 +1,31 @@
-"""k=2 s=2 edge convs: the kernels' wrappers, their plain versions and the
-autograd Functions.
+"""k=2 s=2 edge convs: the kernels' wrappers, their plain versions, their
+tile choosers and the autograd Functions.
 
-Counterpart of ``openscene_tpu/sparse/pallas_edge.py``:
+Counterpart of ``openscene_tpu/sparse/pallas_edge.py``.  Every kernel reads
+the edge's own layouts (:func:`with_edge_layouts`, built once per batch with
+the plans in both geometry paths): the children grouped by offset
+(:class:`~.types.EdgeGroups`) and the parents sorted by which children
+they hold (:class:`~.types.EdgeSkip`), so each multiplies only the (child,
+offset) pairs that exist.  Times and bounds below: MinkUNet18A on 2 cm
+scans, an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
 
-* down conv (kernel ``make_down_kernel``, op ``windowed_down_conv``):
-  ``out[p] = sum_{k<8} x_child[fwd[k, p]] @ W[k]`` over ``DownPlan.fwd``.
-  The CUDA kernel is the same gather-GEMM-sum source as the stencil conv
-  (``csrc/gather_gemm_fwd.cu``) at K = 8; ``down_conv_fwd`` has its own
-  launch counter, ``down_conv_fwd.launches``.
-* down-conv backward (kernel ``make_up_bwd_kernel``, op ``_down_conv_bwd``),
-  over the children: ``dx[c] = g[parent(c)] @ W[offset(c)]^T`` and
-  ``dW[k] = x[fwd[k]]^T @ g``.  dx is the gather-GEMM-sum over the index
-  ``where(offset(c) == k, parent(c), none)``, dW the row-reduction kernel of
-  ``csrc/gather_gemm_bwd.cu``; wrapper ``down_conv_bwd``.
+* down conv forward (:class:`DownConv`; replaces TPU kernel 3,
+  ``make_down_kernel``, op ``windowed_down_conv``): ``out[p] = sum_{k<8}
+  x_child[fwd[k, p]] @ W[k]``, ``csrc/gather_gemm_fwd.cu`` in skip mode on
+  the edge's ``EdgeSkip``: tiles of mask-sorted parents multiply only the
+  offsets they hold (about 2.4 of 8).  Wrapper ``down_conv_fwd``, tiles
+  from :func:`down_tiles`; at edge 0 of a 120,695-voxel scene 0.0162 ms
+  against a bound of 0.0035 (0.0265 densely).
+* down conv backward (replaces TPU kernel 6, ``make_up_bwd_kernel``, op
+  ``_down_conv_bwd``), over the children: ``dx[c] = g[parent(c)] @
+  W[offset(c)]^T`` is ``csrc/up_conv_fwd.cu`` with ``W_NK`` on the groups
+  (each child row multiplied once, ``W[k]^T`` read in the kernel; tiles
+  from :func:`down_dx_tiles`), and ``dW[k] = sum_{offset(c)=k} x[c]^T
+  g[parent(c)]`` is ``csrc/gather_gemm_bwd.cu`` in group mode over each
+  offset's own children (:func:`down_wgrad_tiles`).  Wrapper
+  ``down_conv_bwd``; at edge 0 of a 263,063-voxel batch 0.0508 ms against
+  a bound of 0.0128, dx and dW together (0.1968 in the design replaced: a
+  K=8 gather-GEMM with 7 of 8 indices empty, and a dense dW).
 * up conv, the model's (:class:`UpConv`): the forward runs over the
   children (kernel ``make_up_kernel``, op ``windowed_up_conv``):
   ``out[c] = x[parent(c)] @ W[offset(c)]``, each child row multiplied once
@@ -25,15 +38,9 @@ Counterpart of ``openscene_tpu/sparse/pallas_edge.py``:
   its TPU; on an NVIDIA H100 80GB HBM3 at 700 W kernel 5 is faster at
   every edge of MinkUNet18A (PERF.md), so the port has one route.
 
-The up conv's kernels read two layouts of the edge, built once per batch
-with the plans (:func:`with_edge_layouts`, in both geometry paths): the
-children grouped by offset (:class:`~.types.EdgeGroups`), which kernel 5
-walks tile by tile and ``dW`` reduces segment by segment, and the parents
-sorted by which children they hold (:class:`~.types.EdgeSkip`), with
-which ``dx`` multiplies only the offsets a tile of parents holds.
-
 Every wrapper takes its plain version only for a CPU tensor and counts its
-launches in ``<wrapper>.launches`` (one per call that reaches the card).
+launches in ``<wrapper>.launches`` (one per call that reaches the card); a
+CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -45,12 +52,11 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .ops import (gather_matmul_sum, matmul_f32, sparse_down_conv_bwd,
+from .ops import (matmul_f32, sparse_down_conv, sparse_down_conv_bwd,
                   sparse_up_conv_bwd)
-from .stencil_conv import (FWD_COL_TILES, TILE_ROWS, _fit,
+from .stencil_conv import (FWD_COL_TILES, MAX_WARPS, TILE_ROWS, _fit,
                            check_index_arrays, gather_gemm_cuda,
-                           gather_wgrad_cuda, launch_gather_wgrad,
-                           sorted_masks, wgrad_tiles)
+                           launch_gather_wgrad, sorted_masks, wgrad_tiles)
 from .types import DownPlan, EdgeGroups, EdgeSkip
 
 _LIB_UP = "up_conv_fwd"
@@ -65,80 +71,20 @@ EDGE_TILE = 64
 UP_TARGET_BLOCKS = 300
 UP_MAX_TPB = 16
 UP_SMEM = 232448
-
-
-def down_conv_plain(x: torch.Tensor, w: torch.Tensor, fwd: torch.Tensor
-                    ) -> torch.Tensor:
-    """Plain PyTorch version: one ``index_select`` + fp32 matmul per offset
-    (sparse/ops.py:sparse_down_conv)."""
-    return gather_matmul_sum(x, w, fwd).to(x.dtype)
-
-
-def down_conv_fwd(x: torch.Tensor, w: torch.Tensor, fwd: torch.Tensor
-                  ) -> torch.Tensor:
-    """Down conv forward. x: (child_cap, Cin); w: (8, Cin, Cout) fp32;
-    fwd: (8, parent_cap) int32.  Returns (parent_cap, Cout).  CPU tensors
-    take the plain version; CUDA tensors launch the kernel (bf16 only) or
-    raise."""
-    if x.device.type == "cpu":
-        return down_conv_plain(x, w, fwd)
-    out = gather_gemm_cuda(x, w, fwd)
-    down_conv_fwd.launches += 1
-    return out
-
-
-down_conv_fwd.launches = 0
-
-
-# Plain PyTorch version of the backward (x, w, g, plan) -> (dx, dW)
-down_conv_bwd_plain = sparse_down_conv_bwd
-
-
-def down_conv_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                  plan: DownPlan):
-    """Down conv backward: ``(dx, dW)`` for the cotangent ``g`` (parent_cap,
-    Cout); dx (child_cap, Cin) in x.dtype, dW (8, Cin, Cout) fp32.
-
-    ``g`` must be exactly zero at padded parent rows; dx then is exactly
-    zero at padded child rows.  CPU tensors take the plain version; CUDA
-    tensors launch the kernels (x bf16; ``g`` is cast to bf16 once) or raise.
-    """
-    if x.device.type == "cpu":
-        return down_conv_bwd_plain(x, w, g, plan)
-    gb = g.to(torch.bfloat16).contiguous()
-    # one weight per child: offset k sees the child's parent, every other
-    # offset a negative index, which the kernel reads as a zero row
-    offsets = torch.arange(w.shape[0], dtype=torch.int32, device=x.device)
-    idx = torch.where(plan.child_offset[None, :] == offsets[:, None],
-                      plan.child_parent[None, :],
-                      plan.child_parent.new_full((), -1))
-    dx = gather_gemm_cuda(gb, w.transpose(1, 2), idx.contiguous())
-    dw = gather_wgrad_cuda(gb, x, plan.fwd).transpose(1, 2).contiguous()
-    down_conv_bwd.launches += 1
-    return dx, dw
-
-
-down_conv_bwd.launches = 0
-
-
-class DownConv(torch.autograd.Function):
-    """``DownConv.apply(x, w, fwd, child_parent, child_offset)``: forward is
-    :func:`down_conv_fwd`, backward :func:`down_conv_bwd`.
-
-    The output's cotangent must be exactly zero at padded parent rows (the
-    model's BatchNorm re-masks); the returned dx is exactly zero at padded
-    child rows."""
-
-    @staticmethod
-    def forward(ctx, x, w, fwd, child_parent, child_offset):
-        ctx.save_for_backward(x, w, fwd, child_parent, child_offset)
-        return down_conv_fwd(x, w, fwd)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w, *plan = ctx.saved_tensors
-        dx, dw = down_conv_bwd(x, w, g.contiguous(), DownPlan(*plan))
-        return dx, dw.to(w.dtype), None, None, None
+# down_tiles (fitted to scripts/dev_down_tiles.py on the card): 128-row
+# tiles of mask-sorted parents; offset groups, at most DOWN_MAX_GROUPS,
+# while the tiles give fewer than DOWN_TARGET_BLOCKS blocks
+DOWN_ROW_TILE = 128
+DOWN_TARGET_BLOCKS = 128
+DOWN_MAX_GROUPS = 4
+# down_dx_tiles: tiles per block for about DOWN_DX_TARGET_WARPS warps over
+# all blocks (a 32-column tile is a block of 2 warps), at most
+# DOWN_DX_MAX_TPB; down_wgrad_tiles: wgrad_tiles' row splits, at least
+# DOWN_WGRAD_MIN_ROWS rows each (the up conv's dW, on wider tiles, keeps
+# WGRAD_MIN_ROWS: 128-row splits lost up to 2x there, PERF.md)
+DOWN_DX_TARGET_WARPS = 1800
+DOWN_DX_MAX_TPB = 8
+DOWN_WGRAD_MIN_ROWS = 128
 
 
 def build_edge_groups(child_offset: torch.Tensor, child_num,
@@ -228,49 +174,65 @@ def up_conv_plain(x: torch.Tensor, w: torch.Tensor, plan: DownPlan
     return out
 
 
-def _up_smem(cin: int, bn: int, tpb: int) -> int:
-    """Shared-memory bytes of one ``csrc/up_conv_fwd.cu`` block."""
-    return (((-(-cin // 32) * 32 + EDGE_TILE) * (bn + 8)
-             + 4 * EDGE_TILE * 40) * 2 + (2 * tpb * EDGE_TILE + tpb) * 4)
+def _up_smem(cin: int, bn: int, tpb: int, w_nk: bool = False) -> int:
+    """Shared-memory bytes of one ``csrc/up_conv_fwd.cu`` block (``w_nk``:
+    W[k]'s slab stored as bn rows of Cin)."""
+    cinp = -(-cin // 32) * 32
+    slab = bn * (cinp + 8) if w_nk else cinp * (bn + 8)
+    return ((slab + EDGE_TILE * (bn + 8) + 4 * EDGE_TILE * 40) * 2
+            + (2 * tpb * EDGE_TILE + tpb) * 4)
 
 
-@functools.lru_cache(maxsize=None)
-def up_tiles(child_cap: int, cin: int, cout: int) -> Tuple[int, int]:
-    """(column tile, tiles per block) of one ``up_conv_fwd`` launch.
+def _child_tiles(child_cap: int, cin: int, cout: int, w_nk: bool,
+                 target, max_tpb: int = UP_MAX_TPB) -> Tuple[int, int]:
+    """(column tile, tiles per block) of one ``csrc/up_conv_fwd.cu`` launch.
 
     The column tile fits ``cout`` (96 as one 96-column slab), narrowed
     where W[k]'s Cin x tile slab would not fit shared memory (the wide
     bottleneck archs).  A block walks ``tiles per block`` 64-row tiles with
-    one staged weight slab: as many as keep about ``UP_TARGET_BLOCKS``
-    blocks (rounded), at most ``UP_MAX_TPB``."""
+    one staged weight slab: as many as keep about ``target(column tile)``
+    blocks (rounded), at most ``max_tpb``."""
     bn, n_col = _fit(cout, FWD_COL_TILES)
-    while _up_smem(cin, bn, UP_MAX_TPB) > UP_SMEM:
+    while _up_smem(cin, bn, UP_MAX_TPB, w_nk) > UP_SMEM:
         bn -= 32
         n_col = -(-cout // bn)
     tiles = -(-child_cap // EDGE_TILE) + 8
-    tpb = min(UP_MAX_TPB,
-              max(1, (2 * tiles * n_col + UP_TARGET_BLOCKS)
-                  // (2 * UP_TARGET_BLOCKS)))
+    blocks = target(bn)
+    tpb = min(max_tpb, max(1, (2 * tiles * n_col + blocks)
+                           // (2 * blocks)))
     return bn, tpb
+
+
+@functools.lru_cache(maxsize=None)
+def up_tiles(child_cap: int, cin: int, cout: int) -> Tuple[int, int]:
+    """(column tile, tiles per block) of one ``up_conv_fwd`` launch
+    (:func:`_child_tiles`, about ``UP_TARGET_BLOCKS`` blocks)."""
+    return _child_tiles(child_cap, cin, cout, False,
+                        lambda bn: UP_TARGET_BLOCKS)
 
 
 def _bind_up() -> ctypes.CDLL:
     lib = _build.load(_LIB_UP)
     fn = lib.up_conv_fwd_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check_edge_layouts(plan: DownPlan, device: int) -> None:
-    """The CUDA wrappers' checks of an edge's groups and skip plan: the
-    kernels read them unchecked."""
+    """The CUDA wrappers' checks of an edge's ``child_parent``, groups and
+    skip plan: the kernels read them unchecked."""
     if plan.groups is None or plan.skip is None:
-        raise ValueError("the up conv's kernels need the plan's EdgeGroups "
+        raise ValueError("the edge convs' kernels need the plan's EdgeGroups "
                          "and EdgeSkip (edge_conv.with_edge_layouts)")
-    child_cap = plan.child_parent.shape[0]
+    cp = plan.child_parent
+    if (cp.dtype != torch.int32 or cp.get_device() != device
+            or not cp.is_contiguous()):
+        raise ValueError(f"child_parent: {cp.dtype} on {cp.device}, want "
+                         f"contiguous int32 on cuda:{device}")
+    child_cap = cp.shape[0]
     parent_cap = plan.fwd.shape[1]
     tiles = -(-child_cap // EDGE_TILE) + 8
     check_index_arrays(plan.groups, {"rows": (tiles * EDGE_TILE,),
@@ -302,13 +264,10 @@ def up_conv_fwd(x: torch.Tensor, w: torch.Tensor, plan: DownPlan
         raise ValueError(f"x{tuple(x.shape)} and w{tuple(w.shape)} disagree")
     if cin % 8 or cout % 8:
         raise ValueError(f"Cin={cin} and Cout={cout} must be multiples of 8")
-    if cp.dtype != torch.int32:
-        raise TypeError("child_parent must be int32")
-    if not (x.is_contiguous() and cp.is_contiguous()) or x.data_ptr() % 16:
-        raise ValueError("x and child_parent must be contiguous, x 16-byte "
-                         "aligned")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
     d = x.get_device()
-    if w.get_device() != d or cp.get_device() != d:
+    if w.get_device() != d:
         raise ValueError("x, w and the plan must share one device")
     _check_edge_layouts(plan, d)
     child_cap = cp.shape[0]
@@ -324,11 +283,14 @@ def up_conv_fwd(x: torch.Tensor, w: torch.Tensor, plan: DownPlan
 
 def launch_up_conv(x: torch.Tensor, wb: torch.Tensor,
                    child_parent: torch.Tensor, groups: EdgeGroups, bn: int,
-                   tpb: int) -> torch.Tensor:
+                   tpb: int, w_nk: bool = False) -> torch.Tensor:
     """One launch of ``csrc/up_conv_fwd.cu`` with the column tile and tiles
-    per block given (``up_conv_fwd`` checks the arguments; wb is the bf16
-    weight).  Returns (child_cap, Cout) bf16."""
+    per block given (``up_conv_fwd`` and ``down_conv_bwd`` check the
+    arguments; wb is the bf16 weight, (8, Cout, Cin) and read transposed if
+    ``w_nk``).  Returns (child_cap, Cout) bf16."""
     cin, cout = wb.shape[1], wb.shape[2]
+    if w_nk:
+        cin, cout = cout, cin
     child_cap = child_parent.shape[0]
     out = torch.empty((child_cap, cout), dtype=torch.bfloat16,
                       device=x.device)
@@ -339,7 +301,7 @@ def launch_up_conv(x: torch.Tensor, wb: torch.Tensor,
             x.data_ptr(), wb.data_ptr(), child_parent.data_ptr(),
             groups.rows.data_ptr(), groups.tile_k.data_ptr(),
             groups.count.data_ptr(), out.data_ptr(), groups.tile_k.shape[0],
-            child_cap, cin, cout, bn, tpb, stream)
+            child_cap, cin, cout, bn, tpb, int(w_nk), stream)
     if err != 0:
         raise RuntimeError(f"up_conv_fwd launch failed: cudaError {err}")
     return out
@@ -406,7 +368,7 @@ def up_conv_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     wb = w.to(torch.bfloat16).contiguous()
     if not x.is_contiguous() or x.data_ptr() % 16 or gb.data_ptr() % 16:
         raise ValueError("x must be contiguous, x and g 16-byte aligned")
-    if plan.child_parent.get_device() != d or gb.get_device() != d:
+    if gb.get_device() != d:
         raise ValueError("x, g and the plan must share one device")
     dx = gather_gemm_cuda(gb, wb, plan.fwd, plan.skip, w_nk=True,
                           tiles=up_dx_tiles(pcap, cin, cout))
@@ -446,4 +408,154 @@ class UpConv(torch.autograd.Function):
     def backward(ctx, g):
         x, wc = ctx.saved_tensors
         dx, dw = up_conv_bwd(x, wc, g.contiguous(), ctx.plan)
+        return dx, dw.to(ctx.w_dtype), None
+
+
+# Plain PyTorch versions of the down conv: (x, w, plan) -> out and
+# (x, w, g, plan) -> (dx, dW)
+down_conv_plain = sparse_down_conv
+down_conv_bwd_plain = sparse_down_conv_bwd
+
+
+@functools.lru_cache(maxsize=None)
+def down_tiles(parent_cap: int, cin: int, cout: int
+               ) -> Tuple[int, int, int, bool]:
+    """(row tile, column tile, offset groups, staged epilogue) of the down
+    conv's forward launch (``csrc/gather_gemm_fwd.cu`` in skip mode over
+    the parents).  The column tile fits ``cout``; where 128-row tiles give
+    the card fewer than ``DOWN_TARGET_BLOCKS`` blocks (the small edges),
+    each tile's offsets are split over 2 or 4 blocks; with one group the
+    tile is staged and stored as 16-byte row vectors."""
+    bn, n_col = _fit(cout, FWD_COL_TILES)
+    bm = DOWN_ROW_TILE
+    while (bm // 32) * (bn // 32) > MAX_WARPS:
+        bm //= 2
+    blocks = -(-parent_cap // bm) * n_col
+    groups = 1
+    while groups < DOWN_MAX_GROUPS and blocks * groups < DOWN_TARGET_BLOCKS:
+        groups *= 2
+    return bm, bn, groups, groups == 1
+
+
+def down_conv_fwd(x: torch.Tensor, w: torch.Tensor, plan: DownPlan
+                  ) -> torch.Tensor:
+    """Down conv forward (kernel 3).  x: (child_cap, Cin), exactly zero at
+    padded rows; w: (8, Cin, Cout) float; plan: the edge's DownPlan with its
+    skip plan.  Returns (parent_cap, Cout); padded parent rows are exactly
+    zero.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel (x bf16, Cin and Cout multiples of 8; w cast to bf16 where it is
+    not) or raise."""
+    if x.device.type == "cpu":
+        return down_conv_plain(x, w, plan)
+    if not x.is_cuda:
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    _check_edge_layouts(plan, x.get_device())
+    _, cin, cout = w.shape
+    *tiles, staged = down_tiles(plan.fwd.shape[1], cin, cout)
+    out = gather_gemm_cuda(x, w, plan.fwd, plan.skip, tiles=tuple(tiles),
+                           staged=staged)
+    down_conv_fwd.launches += 1
+    return out
+
+
+down_conv_fwd.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def down_dx_tiles(child_cap: int, cin: int, cout: int) -> Tuple[int, int]:
+    """(column tile, tiles per block) of the down conv's ``dx`` launch
+    (``csrc/up_conv_fwd.cu`` with ``W_NK``: ``Cout -> Cin`` over the
+    children): :func:`_child_tiles` for the transposed slab, with about
+    ``DOWN_DX_TARGET_WARPS`` warps over all blocks and at most
+    ``DOWN_DX_MAX_TPB`` tiles a block (the sweep's times are flat from 4
+    to 12 tiles at the JAX bench's 8 scenes, and rise beyond)."""
+    return _child_tiles(child_cap, cout, cin, True,
+                        lambda bn: DOWN_DX_TARGET_WARPS // (2 * bn // 32),
+                        DOWN_DX_MAX_TPB)
+
+
+@functools.lru_cache(maxsize=None)
+def down_wgrad_tiles(parent_cap: int, cin: int, cout: int):
+    """``wgrad_tiles`` of the down conv's ``dW^T`` launch (``a`` = the
+    parents' cotangent, Cout wide; ``b`` = the children, Cin wide), in
+    splits of at least ``DOWN_WGRAD_MIN_ROWS`` rows."""
+    return wgrad_tiles(parent_cap, 8, cout, cin, True, DOWN_WGRAD_MIN_ROWS)
+
+
+def down_conv_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                  plan: DownPlan):
+    """Down conv backward (kernel 6): ``(dx, dW)`` for the cotangent ``g``
+    (parent_cap, Cout); dx (child_cap, Cin) in x.dtype, dW (8, Cin, Cout)
+    fp32.
+
+    ``dx[c] = g[parent(c)] @ W[offset(c)]^T`` runs over the edge's groups,
+    each child row multiplied once with ``W[k]^T`` read in the kernel
+    (``csrc/up_conv_fwd.cu`` with ``w_nk``); ``dW[k] = sum_c x[c]^T
+    g[parent(c)]`` reduces each offset over its own children
+    (``csrc/gather_gemm_bwd.cu`` in group mode, ``a = g`` through
+    ``child_parent``, ``b = x``: ``dW^T``, transposed here).  ``g`` must be
+    exactly zero at padded parent rows; dx is exactly zero at padded child
+    rows.  CPU tensors take the plain version; CUDA tensors launch the
+    kernels (x bf16; ``g`` and ``w`` are cast to bf16 where they are not)
+    or raise.
+    """
+    if x.device.type == "cpu":
+        return down_conv_bwd_plain(x, w, g, plan)
+    if not x.is_cuda:
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x must be bfloat16, got {x.dtype}")
+    K, cin, cout = w.shape
+    pcap, ccap = plan.fwd.shape[1], plan.child_parent.shape[0]
+    if (K != 8 or x.shape != (ccap, cin) or g.shape != (pcap, cout)
+            or cin % 8 or cout % 8):
+        raise ValueError(f"x{tuple(x.shape)} w{tuple(w.shape)} "
+                         f"g{tuple(g.shape)} and the plan disagree")
+    d = x.get_device()
+    _check_edge_layouts(plan, d)
+    gb = g.to(torch.bfloat16).contiguous()
+    wb = w.to(torch.bfloat16).contiguous()
+    if not x.is_contiguous() or x.data_ptr() % 16 or gb.data_ptr() % 16:
+        raise ValueError("x must be contiguous, x and g 16-byte aligned")
+    if gb.get_device() != d or wb.get_device() != d:
+        raise ValueError("x, w, g and the plan must share one device")
+    if max(x.numel(), gb.numel()) >= 2 ** 31:
+        raise ValueError("sizes beyond the kernels' 32-bit indexing")
+    dx = launch_up_conv(gb, wb, plan.child_parent, plan.groups,
+                        *down_dx_tiles(ccap, cin, cout), w_nk=True)
+    dw = launch_gather_wgrad(
+        gb, x, None, (plan.groups.rows, plan.groups.count),
+        *down_wgrad_tiles(pcap, cin, cout), amap=plan.child_parent,
+        seg_tile=EDGE_TILE).transpose(1, 2).contiguous()
+    down_conv_bwd.launches += 1
+    return dx, dw
+
+
+down_conv_bwd.launches = 0
+
+
+class DownConv(torch.autograd.Function):
+    """``DownConv.apply(x, w, plan)`` with ``plan`` the edge's
+    :class:`~.types.DownPlan` (with its groups and skip plan on the card):
+    the model's down conv, forward :func:`down_conv_fwd` (kernel 3),
+    backward :func:`down_conv_bwd` (kernel 6).  Taking the plan as one
+    object keeps the layouts with the plan they were built from: the
+    kernels read them unchecked.  The weight is cast to the activations'
+    dtype once, and the backward reuses that copy.
+
+    The output's cotangent must be exactly zero at padded parent rows (the
+    model's BatchNorm re-masks); the returned dx is exactly zero at padded
+    child rows."""
+
+    @staticmethod
+    def forward(ctx, x, w, plan):
+        wc = w.to(x.dtype)
+        ctx.save_for_backward(x, wc)
+        ctx.plan, ctx.w_dtype = plan, w.dtype
+        return down_conv_fwd(x, wc, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wc = ctx.saved_tensors
+        dx, dw = down_conv_bwd(x, wc, g.contiguous(), ctx.plan)
         return dx, dw.to(ctx.w_dtype), None

@@ -165,16 +165,17 @@ def fwd_tiles(rows: int, K: int, cin: int, cout: int, skip: bool = False
 
 
 @functools.lru_cache(maxsize=None)
-def wgrad_tiles(rows: int, K: int, ca: int, cb: int, skip: bool
-                ) -> Tuple[int, int, int, int]:
+def wgrad_tiles(rows: int, K: int, ca: int, cb: int, skip: bool,
+                min_rows: int = WGRAD_MIN_ROWS) -> Tuple[int, int, int, int]:
     """(a tile, b tile, rows per split, splits) of one ``gather_wgrad_cuda``
     call over at most ``rows`` rows per offset (the level's rows: a bound
-    known on the host, so no count is read back)."""
+    known on the host, so no count is read back); splits of at least
+    ``min_rows`` rows."""
     bma, ta = _fit(ca, WGRAD_TILES)
     bnb, tb = _fit(cb, WGRAD_TILES)
     target = WGRAD_TARGET_BLOCKS * (WGRAD_SKIP_FILL if skip else 1)
     per = -(-max(rows, 1) * K * ta * tb // target)
-    per = min(max(per, WGRAD_MIN_ROWS), WGRAD_MAX_ROWS)
+    per = min(max(per, min_rows), WGRAD_MAX_ROWS)
     per = -(-per // _WGRAD_STEP) * _WGRAD_STEP
     return bma, bnb, per, max(1, -(-rows // per))
 
@@ -183,7 +184,7 @@ def _bind() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     fn = lib.gather_gemm_fwd_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -230,11 +231,13 @@ def _check_skip(skip, K: int, rows: int, device: int) -> None:
 
 def launch_gather_gemm(x: torch.Tensor, wb: torch.Tensor, idx: torch.Tensor,
                        skip, bm: int, bn: int, groups: int = 1,
-                       w_nk: bool = False) -> torch.Tensor:
+                       w_nk: bool = False, staged: bool = False
+                       ) -> torch.Tensor:
     """One launch of ``csrc/gather_gemm_fwd.cu`` with the row and column
     tiles and offset groups given (``gather_gemm_cuda`` checks the
-    arguments; wb is the bf16 weight, (K, Cout, Cin) if ``w_nk``).  Returns
-    (rows_out, Cout) bf16."""
+    arguments; wb is the bf16 weight, (K, Cout, Cin) if ``w_nk``;
+    ``staged``: the staged 16-byte epilogue, one offset group only).
+    Returns (rows_out, Cout) bf16."""
     K, cin, cout = wb.shape
     if w_nk:
         cin, cout = cout, cin
@@ -254,7 +257,7 @@ def launch_gather_gemm(x: torch.Tensor, wb: torch.Tensor, idx: torch.Tensor,
             x.data_ptr(), wb.data_ptr(), idx.data_ptr(), _ptr(order),
             _ptr(tile_mask), _ptr(nbr_mask), _ptr(part), out.data_ptr(),
             rows_out, K, cin, cout, bm, bn, TILE_ROWS, groups, int(w_nk),
-            stream)
+            int(staged), stream)
     if err != 0:
         raise RuntimeError(f"gather_gemm_fwd launch failed: cudaError {err}")
     return out
@@ -262,8 +265,8 @@ def launch_gather_gemm(x: torch.Tensor, wb: torch.Tensor, idx: torch.Tensor,
 
 def gather_gemm_cuda(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
                      skip=None, w_nk: bool = False,
-                     tiles: Optional[Tuple[int, int, int]] = None
-                     ) -> torch.Tensor:
+                     tiles: Optional[Tuple[int, int, int]] = None,
+                     staged: bool = False) -> torch.Tensor:
     """Launch ``csrc/gather_gemm_fwd.cu`` once: ``sum_k x[idx[k]] @ w[k]``,
     or ``sum_k x[idx[k]] @ w[k]^T`` with ``w_nk``.
 
@@ -277,8 +280,10 @@ def gather_gemm_cuda(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     multiplies only the offsets each tile of sorted rows holds, and x must
     be exactly zero at every row ``idx`` points to where the skip plan says
     no neighbour is.  ``tiles``: (row tile, column tile, offset groups),
-    by default :func:`fwd_tiles`'s.  Returns (rows_out, Cout) bf16.  Raises
-    on anything else, and if the launch is refused.
+    by default :func:`fwd_tiles`'s.  ``staged``: the epilogue that stages
+    the tile and stores 16-byte row vectors (one offset group only).
+    Returns (rows_out, Cout) bf16.  Raises on anything else, and if the
+    launch is refused.
     """
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
@@ -314,7 +319,7 @@ def gather_gemm_cuda(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     return launch_gather_gemm(
         x, w.to(torch.bfloat16).contiguous(), idx, skip,
         *(tiles or fwd_tiles(rows_out, K, cin, cout, skip is not None)),
-        w_nk=w_nk)
+        w_nk=w_nk, staged=staged)
 
 
 def launch_gather_wgrad(a: torch.Tensor, b: torch.Tensor, idx, pairs,
@@ -322,7 +327,7 @@ def launch_gather_wgrad(a: torch.Tensor, b: torch.Tensor, idx, pairs,
                         amap: Optional[torch.Tensor] = None,
                         seg_tile: int = 0) -> torch.Tensor:
     """``csrc/gather_gemm_bwd.cu`` with the tiles and row splits given
-    (``gather_wgrad_cuda`` and ``edge_conv.up_conv_bwd`` check the
+    (``gather_wgrad_cuda`` and the edge convs' backward wrappers check the
     arguments).  ``pairs``: ``(pair_rows, pair_count)`` or None (dense);
     with ``amap`` they are segments of ``seg_tile``-padded lists of b's
     rows (:class:`~.types.EdgeGroups`), a's row being ``amap[b's row]``,

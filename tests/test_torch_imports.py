@@ -23,7 +23,7 @@ from openscene_tpu_torch.sparse.edge_conv import (down_conv_bwd,
                                                   down_conv_fwd, up_conv_bwd)
 from openscene_tpu_torch.sparse.stencil_conv import (stencil_conv_bwd,
                                                      stencil_conv_fwd)
-from openscene_tpu_torch.sparse.types import DownPlan
+from openscene_tpu_torch.sparse.types import DownPlan, EdgeGroups, EdgeSkip
 from tests.test_torch_unet import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -108,14 +108,29 @@ def test_evaluator_defaults_to_cuda(monkeypatch):
                           text_features=np.eye(20, 8, dtype=np.float32))
 
 
+def _meta_down_plan():
+    """A DownPlan of meta tensors (32 parents, 64 children) with its
+    groups and skip plan, as the device plans carry them."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    return DownPlan(fwd=meta(8, 32), child_parent=meta(64),
+                    child_offset=meta(64),
+                    groups=EdgeGroups(rows=meta(9 * 64), tile_k=meta(9),
+                                      count=meta(8)),
+                    skip=EdgeSkip(nbr_mask=meta(32), order=meta(32),
+                                  tile_mask=meta(1)))
+
+
 @pytest.mark.parametrize("wrapper,K", [(stencil_conv_fwd, 27),
                                        (down_conv_fwd, 8)])
 def test_wrapper_never_falls_back_off_cpu(wrapper, K):
     x = torch.empty((64, 32), dtype=torch.bfloat16, device="meta")
     w = torch.empty((K, 32, 32), device="meta")
-    idx = torch.empty((K, 64), dtype=torch.int32, device="meta")
+    # the stencil conv takes its fwd plan, the down conv the whole edge plan
+    plan = (torch.empty((K, 64), dtype=torch.int32, device="meta")
+            if wrapper is stencil_conv_fwd else _meta_down_plan())
     with pytest.raises(ValueError, match="CUDA tensor"):
-        wrapper(x, w, idx)
+        wrapper(x, w, plan)
     assert wrapper.launches == 0
 
 
@@ -134,9 +149,7 @@ def test_bwd_wrapper_never_falls_back_off_cpu(which):
     def meta(shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    plan = DownPlan(fwd=meta((8, 32), torch.int32),
-                    child_parent=meta((64,), torch.int32),
-                    child_offset=meta((64,), torch.int32))
+    plan = _meta_down_plan()
     w = torch.empty((8, 32, 32), device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         if which == "stencil":

@@ -127,7 +127,7 @@ def test_down_conv_grads_match_jax(geo, dtype, edge, cin, cout):
     wt = torch.from_numpy(w)
     ref = _jax_grads(lambda a, b: jops.sparse_down_conv(a, b, jplan), xj,
                      jnp.asarray(w), gj)
-    got = _grads(lambda a, b: DownConv.apply(a, b, *tplan[:3]), x, wt, g)
+    got = _grads(lambda a, b: DownConv.apply(a, b, tplan), x, wt, g)
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     _check(got, ref, nc, dtype)
     for fn in (down_conv_bwd, ops.sparse_down_conv_bwd):
@@ -307,17 +307,15 @@ def test_edge_functions_match_dense_strided_convs(tiny, which):
     if which == "down":
         x, g = _f64(rng, child.cap, nc, cin), _f64(rng, parent.cap, np_, cout)
         fn, dense, n_in, n_out = DownConv, _dense_down, nc, np_
-        args = tplan[:3]
     else:
         x, g = _f64(rng, parent.cap, np_, cin), _f64(rng, child.cap, nc, cout)
         fn, dense, n_in, n_out = UpConv, _dense_up, np_, nc
-        args = (tplan,)
-    out = fn.apply(x, w, *args)
+    out = fn.apply(x, w, tplan)
     pad = out.shape[0] - n_out
     ref_fn = lambda a, b: torch.nn.functional.pad(
         dense(a, b, child, parent), (0, 0, 0, pad))
     torch.testing.assert_close(out, ref_fn(x, w), rtol=1e-10, atol=1e-10)
-    dx, dw = _grads(lambda a, b: fn.apply(a, b, *args), x, w, g)
+    dx, dw = _grads(lambda a, b: fn.apply(a, b, tplan), x, w, g)
     dx_ref, dw_ref = _grads(ref_fn, x, w, g)
     assert dx.dtype == dw.dtype == torch.float64
     torch.testing.assert_close(dx, dx_ref, rtol=1e-10, atol=1e-10)

@@ -114,12 +114,11 @@ def test_down_conv_matches_jax(geo, dtype, edge, cin, cout):
     w = (rng.standard_normal((8, cin, cout)) * 0.2).astype(np.float32)
     ref = jops.sparse_down_conv(xj, jnp.asarray(w),
                                 jax.tree_util.tree_map(jnp.asarray, plan))
-    fwd = torch.from_numpy(plan.fwd)
     tplan = _torch_down(geo, edge)
     num = int(parent.num)
     _check(ops.sparse_down_conv(x, torch.from_numpy(w), tplan), ref, num,
            dtype)
-    _check(down_conv_fwd(x, torch.from_numpy(w), fwd), ref, num, dtype)
+    _check(down_conv_fwd(x, torch.from_numpy(w), tplan), ref, num, dtype)
     assert down_conv_fwd.launches == 0
 
 
@@ -226,6 +225,6 @@ def test_down_wrapper_matches_windowed_kernel(interpret_mode, window_geo):
     w = (rng.standard_normal((8, 32, 32)) * 0.2).astype(np.float32)
     ref = pallas_edge.windowed_down_conv(xj, jnp.asarray(w),
                                          *(jnp.asarray(a) for a in ewp))
-    out = down_conv_fwd(x, torch.from_numpy(w), torch.from_numpy(plan.fwd))
+    out = down_conv_fwd(x, torch.from_numpy(w), _torch_down(geo, 0))
     _check(out, ref, int(parent.num), torch.bfloat16)
     assert down_conv_fwd.launches == 0
