@@ -43,10 +43,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    OpenSeg width through ``runtime.evaluate.ZeroShotEvaluator`` on ``cuda``,
    in ensemble and distill modes, on 2 synthetic ScanNet-like scenes at 2 cm
    (about 125k voxels each), random weights from a seed and pseudo text
-   embeddings.  Every kernel's launch counter is set to 0 just before each
-   run and read just after: each stencil-conv kernel must launch 32 times
-   and the down-conv and up-conv kernels 4 times each per scene forward.
-   The outputs must be finite, and one scene's logits from the kernel path
+   embeddings, first with each scene's geometry built on the card
+   (``device_geometry auto``), then planned on the host (``off``): voxels/s
+   of both routes, no overflow.  Every kernel's launch counter is set to 0
+   just before each run and read just after: each stencil-conv kernel must
+   launch 32 times and the down-conv and up-conv kernels 4 times each per
+   scene forward.  The outputs must be finite.  Each scene in each mode
+   then goes through both routes on the same level caps: the point logits
+   must be bit-equal and the argmax agree at every point (per-scene host
+   and device ms printed), and one card-route distill step is profiled (it
+   copies no fused features).  The C++ kernel-map builder must be
+   available on the card's host; scene 0's host planner ms with it and with
+   NumPy, plans bit-identical.  One scene's logits from the kernel path
    must match the same model run through the plain versions on the card;
 6. drives the training path: ``runtime.distill.DistillTrainer`` on ``cuda``
    (device geometry ``auto``, so on), MinkUNet18A, 768-d, cosine loss,
@@ -67,12 +75,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    fp32: the loss and the updated parameters of the first two must agree,
    and the kernel path's gradients must be as close to the fp32 step's as
    the plain bf16 path's are (``compare_train_step`` states the limits and
-   why bf16 noise is measured rather than assumed);
-7. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
+   why bf16 noise is measured rather than assumed).  The host ms to load
+   and assemble a raw 2-scene train batch, in a child process with the
+   package's allocator tuning (``utils/hostmem``) and in one without;
+7. drives supervised segmentation: ``runtime.train_seg.SegTrainer`` on
+   ``cuda`` with ``configs/scannet/mink.yaml`` (MinkUNet18A, 3 -> 20
+   classes, cross-entropy, SGD, constant input, bf16) on batches of its 8
+   synthetic scenes at 2 cm, geometry built on the card, 3 steps with the
+   launches counted per step as in 6; one step on a 2-scene batch through
+   the kernels, the plain versions and fp32 as in 6 (SGD's updated
+   parameters held to the gradients' distance); ``runtime.eval_seg.
+   evaluate_seg`` on the 2 val scenes at one repeat, 32/4/4 launches per
+   scene: voxels/s and the mIoU of barely trained weights (a smoke value);
+8. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
    train batch with few iterations: each up conv forward and
    forward+backward by the model's route against the dense route;
-8. prints the card line, one ``{"kernels": [...]}`` JSON line, and last
-   ``{"ok": true, "device": {...}}``.
+9. prints the eval, train, hostmem and seg summaries, the card line, one
+   ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It also exits non-zero when CUDA is unavailable, or when the port's
@@ -106,6 +126,11 @@ UP_WIDTHS = ((96, 96), (128, 96), (128, 128), (256, 128))
 DOWN_WIDTHS = (32, 32, 64, 128)
 TRAIN_BATCH = 2
 TRAIN_STEPS = 3
+# supervised segmentation: configs/scannet/mink.yaml's model and batch
+SEG_CONFIG = os.path.join("configs", "scannet", "mink.yaml")
+SEG_BATCH = 8
+SEG_STEPS = 3
+SEG_TRAIN_SCENES = 8
 DW_TOL = 1e-4               # weight gradients: fraction of max|plain dW|
 RESOLVED = 0.1              # an element's |fp32 grad| over its tensor's max
 PARAM_TOL_RESOLVED = 0.5    # updated parameters, kernels against plain, as
@@ -839,7 +864,8 @@ def breakdown(step, model, text, sample, dim):
     step(model, text, batch)
     torch.cuda.synchronize()
     t_step = time.time() - t0
-    print(f"scene 0 breakdown: host assembly (geometry plans) "
+    print(f"scene 0 breakdown (host geometry, ensemble): host assembly "
+          f"(geometry plans) "
           f"{t_host * 1e3:.1f} ms, device step (plans to device, forward, "
           f"text product) {t_step * 1e3:.1f} ms", flush=True)
     busy, _ = profile_device(lambda: step(model, text, batch), "eval")
@@ -927,19 +953,20 @@ TRAIN_LAUNCHES = {"stencil_conv_fwd": STENCILS_PER_FORWARD,
                   "up_conv_bwd": UPS_PER_FORWARD}
 
 
-def train_phase(trainer, batches, card):
-    """TRAIN_STEPS steps of the trainer on ``cuda`` through
+def train_phase(trainer, batches, card, what, steps=TRAIN_STEPS,
+                falls=True):
+    """``steps`` steps of a trainer on ``cuda`` through
     ``trainer.train_step``, device geometry on: raw batches, geometry built
-    on the card.  Returns the launches counted.  ``batches`` yields
-    ``(RawDistillBatch, caps)`` (host loading and assembly are timed around
-    ``next``)."""
+    on the card.  Returns the launches counted and a summary.  ``batches``
+    yields ``(raw batch, caps)`` (host loading and assembly are timed around
+    ``next``); ``falls``: the last loss must be below the first."""
     import math
     import torch
     total = dict.fromkeys(wrappers(), 0)
     losses, voxels, t_host, t_dev = [], 0, 0.0, 0.0
     overflows = trainer.overflows
     t_all = time.time()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.time()
         batch = next(batches)
         host = time.time() - t0
@@ -947,7 +974,8 @@ def train_phase(trainer, batches, card):
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.time()
-        loss = float(trainer.train_step(batch))
+        out = trainer.train_step(batch)
+        loss = float(out[0] if isinstance(out, tuple) else out)
         torch.cuda.synchronize()
         dev = time.time() - t0
         got = read_counts()
@@ -962,23 +990,25 @@ def train_phase(trainer, batches, card):
         voxels += int(raw.num)
         t_host += host
         t_dev += dev
-        print(f"train step {i}: loss {loss:.6f}, {int(raw.num)} voxels "
+        print(f"{what} step {i}: loss {loss:.6f}, {int(raw.num)} voxels "
               f"(level caps {caps}), host load + raw assembly "
               f"{host * 1e3:.1f} ms, device step (coordinates to the card, "
-              f"geometry, forward, loss, backward, Adam) {dev * 1e3:.1f} ms",
-              flush=True)
+              f"geometry, forward, loss, backward, update) {dev * 1e3:.1f} "
+              f"ms", flush=True)
     dt = time.time() - t_all
     if trainer.overflows != overflows:
         raise AssertionError("device geometry overflowed during training")
-    if not losses[2] < losses[0]:
+    if falls and not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    print(f"train: {ARCH} {DIM}-d cosine bf16, device geometry, batch of "
-          f"{TRAIN_BATCH} scenes, {TRAIN_STEPS} steps, {voxels} voxels in "
-          f"{dt:.3f}s -> {TRAIN_STEPS / dt:.4f} steps/s, {voxels / dt:.1f} "
-          f"voxels/s (host {t_host:.3f}s, device steps {t_dev:.3f}s; step 0 "
-          f"includes the allocator's warm-up), 0 overflows [{card}]",
-          flush=True)
-    return total
+    summary = {"steps": steps, "voxels": voxels, "seconds": dt,
+               "steps_per_s": steps / dt, "voxels_per_s": voxels / dt,
+               "host_s": t_host, "device_s": t_dev, "losses": losses}
+    print(f"{what}: device geometry, batch of {trainer.cfg.batch_size} "
+          f"scenes, {steps} steps, {voxels} voxels in {dt:.3f}s -> "
+          f"{steps / dt:.4f} steps/s, {voxels / dt:.1f} voxels/s (host "
+          f"{t_host:.3f}s, device steps {t_dev:.3f}s; step 0 includes the "
+          f"allocator's warm-up), 0 overflows [{card}]", flush=True)
+    return total, summary
 
 
 def host_batch_from_caps(raw, caps):
@@ -1014,7 +1044,7 @@ def assembly_times(trainer, card):
     return t_raw * 1e3, t_host * 1e3
 
 
-def compare_train_step(trainer, batch):
+def compare_train_step(trainer, batch, what="train"):
     """One step from the same model and optimizer state three times on the
     card: through the kernels (bf16), through the plain versions (bf16), and
     through the plain versions in fp32 as the yardstick of bf16 noise.
@@ -1036,7 +1066,12 @@ def compare_train_step(trainer, batch):
     gradient is resolved (at least RESOLVED of its tensor's largest), where
     bf16 noise cannot turn Adam's ratio of moments, PARAM_TOL_MEAN * lr on
     the mean over all elements, PARAM_TOL_ALL * lr on every element; and the
-    parameters moved at all.  Returns the summary it prints."""
+    parameters moved at all.  SGD (the seg trainer) moves each weight by lr
+    times its gradient from the same momentum buffer and decay, so its
+    updated parameters are held tighter: the kernel path's no farther from
+    the plain path's, in L2 over all parameters, than lr times the two
+    gradients' distance (1.01x) plus two fp32 ulps of the parameters.
+    Returns the summary it prints."""
     import copy
     import statistics
     import torch
@@ -1051,7 +1086,8 @@ def compare_train_step(trainer, batch):
         step.it, saved = it0, step.cdtype
         step.cdtype = cdtype
         try:
-            loss = float(step(batch))
+            out = step(batch)
+            loss = float(out[0] if isinstance(out, tuple) else out)
         finally:
             step.cdtype = saved
         torch.cuda.synchronize()
@@ -1093,6 +1129,14 @@ def compare_train_step(trainer, batch):
         dsum, count = dsum + diff.sum().item(), count + diff.numel()
     moved = max((params_k[n] - state0[n]).abs().max().item()
                 for n in params_p)
+    sgd = isinstance(opt, torch.optim.SGD)
+    if sgd:  # the update is linear in the gradient
+        pdist = sum((params_k[n] - params_p[n]).norm().item() ** 2
+                    for n in params_p) ** 0.5
+        gdist = sum((grads_k[n] - grads_p[n]).norm().item() ** 2
+                    for n in params_p) ** 0.5
+        pnorm = sum(p.norm().item() ** 2 for p in params_p.values()) ** 0.5
+        sgd_limit = 1.01 * lr * gdist + 2 * 2.0 ** -23 * pnorm
     out = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_fp32": loss_32,
            "grad_rel_l2_kernels_vs_fp32": k32_all,
            "grad_rel_l2_plain_vs_fp32": p32_all,
@@ -1106,17 +1150,268 @@ def compare_train_step(trainer, batch):
            "param_resolved_max_abs_diff": dresolved,
            "param_mean_abs_diff": dsum / count,
            "param_max_abs_move": moved, "lr": lr}
-    print(f"train-step parity (kernels vs plain vs fp32 plain on the card, "
+    if sgd:
+        out.update(param_l2_kernels_vs_plain=pdist, sgd_limit=sgd_limit)
+    print(f"{what}-step parity (kernels vs plain vs fp32 plain on the card, "
           f"same state and batch): {json.dumps(out)}", flush=True)
+    if sgd:
+        params_ok = pdist <= sgd_limit
+    else:
+        params_ok = (dparam <= PARAM_TOL_ALL * lr
+                     and dresolved <= PARAM_TOL_RESOLVED * lr
+                     and dsum / count <= PARAM_TOL_MEAN * lr)
     if not (abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
             and k32_all <= 1.25 * p32_all + 0.01
             and k32[worst] <= 3 * p32[worst] + 0.05
-            and 0 < moved and dparam <= PARAM_TOL_ALL * lr
-            and dresolved <= PARAM_TOL_RESOLVED * lr
-            and dsum / count <= PARAM_TOL_MEAN * lr):
+            and 0 < moved and params_ok):
         raise AssertionError("kernel-path and plain-path train steps "
                              "disagree")
     return out
+
+def eval_routes_phase(cfg, model, text, samples, card):
+    """Zero-shot eval of each scene in each mode through the card's geometry
+    and through the host's on the same level caps (the scene's own): the
+    point logits must be bit-equal and the argmax agree at every point.
+    Per scene: the host ms (assembly; the host route's includes its
+    planner) and the device ms (the card route's includes the geometry
+    build; both the step to its synchronised end).  Then one card-route
+    distill step under the profiler: it copies no fused features."""
+    import torch
+    from openscene_tpu_torch.data.batch import (assemble_eval_batch,
+                                                assemble_raw_eval_batch)
+    from openscene_tpu_torch.runtime.evaluate import (SceneGeometry,
+                                                      make_eval_step)
+    from openscene_tpu_torch.sparse.geometry import GeometryCaps
+    geometry = SceneGeometry(cfg, model.final.device)
+    rows = []
+    for mode in MODES:
+        step = make_eval_step(mode, constant_input=True)
+        fused = mode != "distill"
+        for i, sample in enumerate(samples):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            raw, caps = assemble_raw_eval_batch([sample], DIM,
+                                                need_fused=fused)
+            t1 = time.time()
+            geo, over = geometry.build(raw.coords, raw.num, caps.fixed)
+            if over:
+                raise AssertionError(f"scene {i}: the card's geometry "
+                                     f"overflowed (caps {caps.fixed})")
+            n = raw.num_points
+            card_logits = step(model, text, raw, geo)[0][:n].cpu()
+            t2 = time.time()
+            batch = assemble_eval_batch(
+                [sample], DIM, caps=GeometryCaps(cap0=caps.cap0,
+                                                 fixed=caps.fixed),
+                need_fused=fused)
+            t3 = time.time()
+            host_logits = step(model, text, batch)[0][:n].cpu()
+            t4 = time.time()
+            if (raw.feat_3d is None) != (mode == "distill"):
+                raise AssertionError(f"{mode}: feat_3d assembled wrongly")
+            equal = torch.equal(card_logits, host_logits)
+            agree = bool((card_logits.argmax(1)
+                          == host_logits.argmax(1)).all())
+            row = {"mode": mode, "scene": i, "voxels": int(raw.num),
+                   "caps": caps.fixed, "bit_equal": equal,
+                   "argmax_agree": agree,
+                   "card_host_ms": (t1 - t0) * 1e3,
+                   "card_device_ms": (t2 - t1) * 1e3,
+                   "host_host_ms": (t3 - t2) * 1e3,
+                   "host_device_ms": (t4 - t3) * 1e3}
+            rows.append(row)
+            print(f"eval routes {mode} scene {i}: {row['voxels']} voxels, "
+                  f"caps {caps.fixed}; card geometry: host {row['card_host_ms']:.1f} "
+                  f"ms, device {row['card_device_ms']:.1f} ms; host geometry: "
+                  f"host {row['host_host_ms']:.1f} ms, device "
+                  f"{row['host_device_ms']:.1f} ms; logits bit-equal {equal}, "
+                  f"argmax agree {agree} [{card}]", flush=True)
+            if not (equal and agree):
+                raise AssertionError(f"{mode} scene {i}: card and host "
+                                     "geometry give other logits")
+    raw, caps = assemble_raw_eval_batch([samples[0]], DIM, need_fused=False)
+    geo, _ = geometry.build(raw.coords, raw.num, caps.fixed)
+    step = make_eval_step("distill", constant_input=True)
+    busy, prow = profile_device(lambda: step(model, text, raw, geo),
+                                "eval card distill")
+    copies = sum(r[0] for r in prow if "Memcpy HtoD" in r[2])
+    print(f"profiler[eval card distill]: device busy {busy:.3f} ms, "
+          f"Memcpy HtoD {copies:.3f} ms (no fused features) [{card}]",
+          flush=True)
+    return rows, {"busy_ms": busy, "memcpy_htod_ms": copies}
+
+
+def native_phase(sample, card):
+    """The C++ kernel-map builder must be available on the card's host; the
+    host planner's ms for scene 0 with it and with NumPy (best of two), and
+    the two plans bit-identical."""
+    import numpy as np
+    from openscene_tpu_torch.data.batch import assemble_raw_eval_batch
+    from openscene_tpu_torch.sparse import geometry as G
+    from openscene_tpu_torch.sparse import native
+    if not native.available():
+        raise AssertionError("the native kernel-map builder is unavailable "
+                             "on the card's host (g++)")
+    raw, _ = assemble_raw_eval_batch([sample], DIM, need_fused=False)
+    coords = raw.coords[:int(raw.num)]
+
+    def plan():
+        times = []
+        for _ in range(2):
+            t0 = time.time()
+            geo = G.build_unet_geometry(coords)
+            times.append((time.time() - t0) * 1e3)
+        return geo, min(times)
+
+    geo_native, t_native = plan()
+    available = native.available
+    native.available = lambda: False
+    try:
+        geo_numpy, t_numpy = plan()
+    finally:
+        native.available = available
+    a, b = geo_arrays(geo_native), geo_arrays(geo_numpy)
+    if set(a) != set(b) or not all(np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("native and NumPy plans differ")
+    print(f"native planner: available, library "
+          f"{os.path.relpath(native.library_path(), HERE)}; scene 0 "
+          f"({int(raw.num)} voxels) host planner {t_native:.1f} ms native, "
+          f"{t_numpy:.1f} ms NumPy, plans bit-identical [{card}]", flush=True)
+    return {"native_ms": t_native, "numpy_ms": t_numpy,
+            "voxels": int(raw.num)}
+
+
+HOSTMEM_CHILD = r"""
+import json, sys, time, types
+root3d, rootfeat, mode, batches = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+if mode == "without":  # the package's import then leaves malloc as it is
+    stub = types.ModuleType("openscene_tpu_torch.utils.hostmem")
+    stub.warm_malloc = lambda threshold=0: False
+    stub._done = False
+    sys.modules[stub.__name__] = stub
+import numpy as np
+from openscene_tpu_torch.data.batch import assemble_raw_distill_batch
+from openscene_tpu_torch.data.loaders import FusedFeatureLoader
+hostmem = sys.modules["openscene_tpu_torch.utils.hostmem"]
+loader = FusedFeatureLoader(datapath_prefix=root3d, datapath_prefix_feat=rootfeat,
+                            voxel_size=%r, split="train", aug=True, loop=batches,
+                            seed=0)
+rng, caps, rows = np.random.default_rng(0), None, []
+for k in range(batches):
+    t0 = time.time()
+    samples = [loader.get(%d * k + j) for j in range(%d)]
+    t1 = time.time()
+    _, caps = assemble_raw_distill_batch(samples, %d, caps=caps, rng=rng)
+    rows.append([(t1 - t0) * 1e3, (time.time() - t1) * 1e3])
+print(json.dumps({"warm_malloc": bool(hostmem._done), "batches": rows}))
+"""
+
+
+def hostmem_phase(d3, dfeat, card, batches=3):
+    """Host ms to load and assemble a raw 2-scene train batch, in a child
+    process with the package's allocator tuning (``utils/hostmem``) and in
+    one without it (the mallopt is process-wide, so each reading has its own
+    process)."""
+    code = HOSTMEM_CHILD % (VOXEL, TRAIN_BATCH, TRAIN_BATCH, DIM)
+    out = {}
+    for mode in ("with", "without"):
+        proc = subprocess.run(
+            [sys.executable, "-c", code, d3, dfeat, mode, str(batches)],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"hostmem child ({mode}) failed: "
+                                 f"{proc.stderr[-2000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        if res["warm_malloc"] != (mode == "with"):
+            raise AssertionError(f"hostmem child ({mode}): warm_malloc "
+                                 f"{res['warm_malloc']}")
+        out[mode] = res["batches"]
+        print(f"hostmem {mode} warm_malloc: {TRAIN_BATCH}-scene raw train "
+              f"batches, host ms (load + voxelize, assemble): "
+              + ", ".join(f"({a:.1f}, {b:.1f})" for a, b in res["batches"])
+              + f" [{card}]", flush=True)
+    return out
+
+
+def seg_config(d3):
+    """``configs/scannet/mink.yaml`` (MinkUNet18A, 3 -> 20 classes, batch 8,
+    SGD, constant input, bf16), on the synthetic scenes: epochs of
+    SEG_STEPS batches, two epochs' schedule (the learning rate is not yet
+    0 at the compared step)."""
+    from openscene_tpu_torch.config import load_config
+    loop = SEG_STEPS * SEG_BATCH // SEG_TRAIN_SCENES
+    return load_config(os.path.join(HERE, SEG_CONFIG), (
+        "data_root", d3, "epochs", "2", "loop", str(loop),
+        "batch_size", str(SEG_BATCH), "evaluate", "False", "workers", "2",
+        "test_repeats", "1", "manual_seed", "0", "save_folder", "",
+        "save_path", os.path.join(HERE, "build", "smoke_seg_exp")))
+
+
+def seg_phase(card, device):
+    """Supervised segmentation on ``cuda``: SEG_STEPS steps of
+    ``SegTrainer`` on SEG_BATCH-scene batches, geometry built on the card
+    (launches counted per step); one step on a 2-scene batch through the
+    kernels, the plain versions and fp32; ``evaluate_seg`` on the val
+    scenes at one repeat."""
+    import numpy as np
+    import torch
+    from openscene_tpu_torch.data.batch import assemble_seg_batch
+    from openscene_tpu_torch.data.loaders import Point3DLoader
+    from openscene_tpu_torch.data.synthetic import build_synthetic_dataset
+    from openscene_tpu_torch.runtime.eval_seg import evaluate_seg
+    from openscene_tpu_torch.runtime.train_seg import SegTrainer
+    root = os.path.join(HERE, "build", "smoke_seg_data")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    d3, _ = build_synthetic_dataset(root, n_train=SEG_TRAIN_SCENES,
+                                    n_val=N_SCENES, dim=8, density=DENSITY)
+    print(f"seg data: {SEG_TRAIN_SCENES} train and {N_SCENES} val scenes "
+          f"written in {time.time() - t0:.1f}s", flush=True)
+    cfg = seg_config(d3)
+    if (cfg.arch_3d, cfg.classes, cfg.batch_size, cfg.input_color) != (
+            ARCH, 20, SEG_BATCH, False):
+        raise AssertionError(f"{SEG_CONFIG} is not MinkUNet18A 3 -> 20, "
+                             "batch 8, constant input")
+    trainer = SegTrainer(cfg, device=device)
+    if not trainer.device_geometry:
+        raise AssertionError("device_geometry 'auto' is off on cuda")
+    launches, summary = train_phase(
+        trainer, trainer._epoch_batches(), card,
+        f"seg train {ARCH} 3->20 CE SGD bf16", steps=SEG_STEPS, falls=False)
+    samples = [trainer.train_data.get(i) for i in range(2)]
+    batch = assemble_seg_batch(samples, rng=np.random.default_rng(0),
+                               shift=True)
+    parity = compare_train_step(trainer, batch, what="seg")
+    # evaluation: the val scenes' voxels as evaluate_seg voxelizes them
+    loader = Point3DLoader(datapath_prefix=d3, voxel_size=cfg.voxel_size,
+                           split="val", eval_all=True, seed=cfg.manual_seed)
+    loader.reseed(int(np.random.default_rng(cfg.manual_seed).integers(
+        10000)))
+    voxels = sum(len(loader.get(i).coords) for i in range(N_SCENES))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    res = evaluate_seg(cfg, trainer.model, device=device)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    got = read_counts()
+    want = expected(dict(stencil_conv_fwd=STENCILS_PER_FORWARD * N_SCENES,
+                         down_conv_fwd=DOWNS_PER_FORWARD * N_SCENES,
+                         up_conv_fwd=UPS_PER_FORWARD * N_SCENES))
+    if got != want:
+        raise AssertionError(f"seg eval: launches {got}, want {want}")
+    if not 0.0 <= res["miou"] <= 1.0:
+        raise AssertionError(f"seg eval: mIoU {res['miou']}")
+    for k in launches:
+        launches[k] += got[k]
+    print(f"seg eval: {ARCH} 3->20, {N_SCENES} val scenes, {voxels} voxels "
+          f"in {dt:.3f}s -> {voxels / dt:.1f} voxels/s, mIoU "
+          f"{res['miou']:.4f} (after {SEG_STEPS} steps from random weights: "
+          f"a smoke value, not an accuracy) [{card}]", flush=True)
+    return launches, {"train": summary, "parity": parity,
+                      "eval": {"voxels": voxels, "seconds": dt,
+                               "voxels_per_s": voxels / dt,
+                               "miou": res["miou"]}}
 
 
 def main():
@@ -1226,34 +1521,52 @@ def main():
                      f"{c['dw_tol']:.3e}" if "dw_tol" in c else "")
                   + f" [{card}]", flush=True)
 
-    # ---- 3. the serving path ----
+    # ---- 3. the serving path: geometry on the card, then on the host ----
     model = ev.model
     launches = dict.fromkeys(wrappers(), 0)
     n_voxels = sum(len(s.coords) for s in samples)
-    for mode in MODES:
-        mev = ZeroShotEvaluator(eval_config(d3, dfeat, mode), model,
-                                allow_pseudo_text=True, device=device)
-        torch.cuda.synchronize()
-        zero_counts()
-        t0 = time.time()
-        res = mev.run()
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        got = read_counts()
-        want = expected(dict(stencil_conv_fwd=STENCILS_PER_FORWARD * N_SCENES,
-                             down_conv_fwd=DOWNS_PER_FORWARD * N_SCENES,
-                             up_conv_fwd=UPS_PER_FORWARD * N_SCENES))
-        if got != want:
-            raise AssertionError(f"{mode}: launches {got}, want {want}")
-        if not np.isfinite(res["miou"]):
-            raise AssertionError(f"{mode}: mIoU {res['miou']}")
-        for k in launches:
-            launches[k] += got[k]
-        print(f"eval {mode}: {ARCH} {DIM}-d, {N_SCENES} scenes, {n_voxels} "
-              f"voxels in {dt:.3f}s -> {N_SCENES / dt:.4f} scenes/s, "
-              f"{n_voxels / dt:.1f} voxels/s, mIoU {res['miou']:.4f} "
-              f"(random weights, pseudo text) [{card}]", flush=True)
-    forwards = len(MODES) * N_SCENES
+    eval_rates = {}
+    for route, dg in (("card", "auto"), ("host", "off")):
+        for mode in MODES:
+            mev = ZeroShotEvaluator(
+                eval_config(d3, dfeat, mode).copy(device_geometry=dg), model,
+                allow_pseudo_text=True, device=device)
+            if mev.geometry.on != (route == "card"):
+                raise AssertionError(f"{route} route: device_geometry "
+                                     f"{dg!r} resolved to {mev.geometry.on}")
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.time()
+            res = mev.run()
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            got = read_counts()
+            want = expected(dict(
+                stencil_conv_fwd=STENCILS_PER_FORWARD * N_SCENES,
+                down_conv_fwd=DOWNS_PER_FORWARD * N_SCENES,
+                up_conv_fwd=UPS_PER_FORWARD * N_SCENES))
+            if got != want:
+                raise AssertionError(f"{route} {mode}: launches {got}, want "
+                                     f"{want}")
+            if not np.isfinite(res["miou"]):
+                raise AssertionError(f"{route} {mode}: mIoU {res['miou']}")
+            if mev.geometry.overflows:
+                raise AssertionError(f"{route} {mode}: {mev.geometry.overflows}"
+                                     " scenes overflowed on the card")
+            for k in launches:
+                launches[k] += got[k]
+            eval_rates[f"{route} {mode}"] = n_voxels / dt
+            print(f"eval {mode} ({route} geometry): {ARCH} {DIM}-d, "
+                  f"{N_SCENES} scenes, {n_voxels} voxels in {dt:.3f}s -> "
+                  f"{N_SCENES / dt:.4f} scenes/s, {n_voxels / dt:.1f} "
+                  f"voxels/s, mIoU {res['miou']:.4f} (random weights, "
+                  f"pseudo text), {mev.geometry.overflows} overflows "
+                  f"[{card}]", flush=True)
+    forwards = 2 * len(MODES) * N_SCENES
+    eval_launches = dict(launches)
+    route_rows, route_profile = eval_routes_phase(
+        eval_config(d3, dfeat, "distill"), model, ev.text, samples, card)
+    native_stats = native_phase(samples[0], card)
     breakdown(make_eval_step("ensemble", constant_input=True), model,
               ev.text, samples[0], DIM)
 
@@ -1280,7 +1593,8 @@ def main():
     # ---- 4. the training path, geometry built on the card ----
     del raw, host_geo
     t_raw_asm, t_host_asm = assembly_times(trainer, card)
-    train_launches = train_phase(trainer, batches, card)
+    train_launches, train_summary = train_phase(
+        trainer, batches, card, f"train {ARCH} {DIM}-d cosine Adam bf16")
     for k in launches:
         launches[k] += train_launches[k]
     pbatch = next(batches)
@@ -1309,8 +1623,15 @@ def main():
                   f"dense design's {DENSE_DESIGN_TRAIN_CONV_MS[0]} + "
                   f"{DENSE_DESIGN_TRAIN_CONV_MS[1]} ms [{card}]", flush=True)
     compare_train_step(trainer, host_batch)
+    del trainer, batches, host_batch
+    hostmem_stats = hostmem_phase(d3, dfeat, card)
 
-    # ---- 5. the per-op benchmark on the train batch ----
+    # ---- 5. supervised segmentation: train and eval, mink.yaml ----
+    seg_launches, seg_stats = seg_phase(card, device)
+    for k in launches:
+        launches[k] += seg_launches[k]
+
+    # ---- 6. the per-op benchmark on the train batch ----
     t0 = time.time()
     bench = bench_ops(praw.coords, int(praw.num), n_scenes=TRAIN_BATCH,
                       iters=BENCH_ITERS)
@@ -1323,7 +1644,7 @@ def main():
             raise AssertionError(f"{k} was not launched on its main path")
         launches[k] += n
 
-    # ---- 6. report ----
+    # ---- 7. report ----
     kernels = []
     for name, shapes in cases.items():
         main_shape = shapes[0]
@@ -1338,8 +1659,7 @@ def main():
             "library_ms": main_shape["library_ms"],
             "shapes": shapes}
         if name in ("stencil_conv_fwd", "down_conv_fwd", "up_conv_fwd"):
-            entry["launches_per_forward"] = (
-                launches[name] - train_launches[name]) / forwards
+            entry["launches_per_forward"] = eval_launches[name] / forwards
         elif name in main_launches:
             entry["main_path"] = "scripts/dev_pack_bench.py:bench_pack"
         else:
@@ -1348,6 +1668,11 @@ def main():
     print(f"skip plans: {json.dumps(skip_stats)}", flush=True)
     print(f"geometry: {json.dumps(geo_stats)}; host assembly ms raw "
           f"{t_raw_asm:.1f}, host geometry {t_host_asm:.1f}", flush=True)
+    print(f"eval: {json.dumps({'voxels_per_s': eval_rates, 'scenes': route_rows, 'card_distill_profile': route_profile, 'native': native_stats})}",
+          flush=True)
+    print(f"train: {json.dumps(train_summary)}; hostmem: "
+          f"{json.dumps(hostmem_stats)}", flush=True)
+    print(f"seg: {json.dumps(seg_stats)}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

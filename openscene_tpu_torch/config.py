@@ -96,7 +96,8 @@ class Config:
     compute_dtype: str = "bfloat16"  # matmul dtype inside the sparse engine
     bucket_growth: float = 1.3  # geometric capacity bucket ratio
     min_bucket: int = 4096  # smallest voxel-capacity bucket
-    use_native_builder: bool = True  # unused by the port (NumPy builder only)
+    use_native_builder: bool = True  # unused: as in the JAX package, the
+    # host planner takes the C++ builder wherever g++ builds it
     region_order: str = ""  # ME kernel-region order for reference-checkpoint
     # conversion ("x_fastest"/"z_fastest"; "" = x_fastest default)
     text_embedding_cache: str = "saved_text_embeddings"
@@ -167,6 +168,21 @@ def load_config(path: Optional[str] = None, overrides: Tuple[str, ...] = ()) -> 
         v = _decode_value(v) if isinstance(v, str) and f.type not in ("str", str) else v
         setattr(cfg, k, _coerce(v, f.type if isinstance(f.type, type) else type(getattr(cfg, k)), k))
     return cfg
+
+
+def load_cli(argv) -> Tuple[Config, Optional[str]]:
+    """``(config, device)`` of an entry point's arguments ``--config <yaml>
+    [--device cuda|cpu] [key value]*`` (``device`` None when not given)."""
+    cfg_path, device, rest = None, None, []
+    it = iter(argv)
+    for a in it:
+        if a == "--config" or a.startswith("--config="):
+            cfg_path = a.split("=", 1)[1] if "=" in a else next(it)
+        elif a == "--device" or a.startswith("--device="):
+            device = a.split("=", 1)[1] if "=" in a else next(it)
+        else:
+            rest.append(a)
+    return load_config(cfg_path, tuple(rest)), device
 
 
 def dataset_name_from_root(data_root: str) -> str:

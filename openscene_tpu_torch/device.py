@@ -34,3 +34,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
+
+
+def device_geometry_on(setting: str, device: torch.device) -> bool:
+    """Whether a step builds its geometry on the device, by the config's
+    ``device_geometry``: ``auto`` is on for a CUDA device and off on the
+    CPU; ``on`` also works on the CPU."""
+    dg = str(setting).lower()
+    return (device.type == "cuda" if dg == "auto"
+            else dg in ("on", "true", "1"))

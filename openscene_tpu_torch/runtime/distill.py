@@ -45,12 +45,13 @@ import numpy as np
 import torch
 
 from .. import metrics
-from ..config import Config, dataset_name_from_root, load_config
-from ..data.batch import (DistillBatch, RawDistillBatch, SegBatch,
-                          assemble_distill_batch, assemble_raw_distill_batch,
-                          assemble_seg_batch)
+from ..config import Config, dataset_name_from_root, load_cli
+from ..convert import optimizer_state_from_optax, params_from_jax
+from ..data.batch import (DistillBatch, RawDistillBatch, RawSegBatch,
+                          SegBatch, assemble_distill_batch,
+                          assemble_raw_distill_batch, assemble_seg_batch)
 from ..data.loaders import FusedFeatureLoader, Point3DLoader
-from ..device import resolve_device
+from ..device import device_geometry_on, resolve_device
 from ..labels import labelset_and_palette
 from ..models.disnet import output_dim
 from ..models.sparse_unet import MinkUNet
@@ -61,7 +62,7 @@ from ..sparse.types import UNetGeometry
 from ..sparse.ops import matmul_f32
 from ..text import extract_text_features
 from ..utils.train_utils import (AverageMeter, ScalarWriter, get_logger,
-                                 load_checkpoint, save_checkpoint)
+                                 read_checkpoint, save_checkpoint)
 
 log = get_logger()
 
@@ -140,7 +141,10 @@ class TrainStep:
     :class:`DistillBatch`.  ``it`` counts the updates taken (the schedule's
     argument); the loss comes back as a 0-d device tensor, so the caller
     decides when to wait for the device.  :meth:`run` takes the geometry
-    already on the device (the raw step's way in)."""
+    already on the device (the raw step's way in) and the batch's level-0
+    arrays that :meth:`parts` picks; a subclass with its own
+    :meth:`parts` and :meth:`loss_on` trains another objective
+    (``runtime/train_seg.py``)."""
 
     def __init__(self, cfg: Config, model: MinkUNet,
                  optimizer: torch.optim.Optimizer,
@@ -150,6 +154,12 @@ class TrainStep:
         self.cfg, self.model, self.optimizer = cfg, model, optimizer
         self.schedule, self.device, self.it = schedule, device, it
         self.cdtype = compute_dtype(cfg)
+
+    @staticmethod
+    def parts(batch) -> tuple:
+        """The level-0 arrays :meth:`loss_on` reads, of a host or raw
+        batch."""
+        return batch.feats, batch.feat_3d, batch.mask
 
     def loss_on(self, geo: UNetGeometry, feats, feat_3d, mask
                 ) -> torch.Tensor:
@@ -169,11 +179,11 @@ class TrainStep:
             return cosine_distill_loss(out, target, mask)
         return l1_distill_loss(out, target, mask)
 
-    def run(self, geo: UNetGeometry, feats, feat_3d, mask) -> torch.Tensor:
+    def run(self, geo: UNetGeometry, *parts) -> torch.Tensor:
         """One update on a batch whose geometry is on the device."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_on(geo, feats, feat_3d, mask)
+        loss = self.loss_on(geo, *parts)
         loss.backward()
         lr = self.schedule(self.it)
         for group in self.optimizer.param_groups:
@@ -184,12 +194,14 @@ class TrainStep:
 
     def __call__(self, batch: DistillBatch) -> torch.Tensor:
         return self.run(geometry_to_device(batch.geo, self.device),
-                        batch.feats, batch.feat_3d, batch.mask)
+                        *self.parts(batch))
 
 
 class RawTrainStep:
-    """``step(raw) -> (loss, overflow)``: one update on a
-    :class:`RawDistillBatch` whose geometry is built on the device for the
+    """``step(raw) -> (loss, overflow)``: one update of ``step`` on a raw
+    batch (:class:`RawDistillBatch`, or :class:`RawSegBatch` for the seg
+    step, whose result is a tuple) whose geometry is built on the device
+    for the
     level caps ``caps``, by the occupancy grid when ``n_scenes`` is given
     (``grid_dims0``: its level-0 extents) and by the search otherwise.
 
@@ -218,7 +230,7 @@ class RawTrainStep:
         geo, overflow = self.geometry(raw)
         if overflow:
             return None, True
-        return self.step.run(geo, raw.feats, raw.feat_3d, raw.mask), False
+        return self.step.run(geo, *self.step.parts(raw)), False
 
 
 def make_train_step(cfg: Config, model: MinkUNet,
@@ -256,23 +268,31 @@ def make_val_step(cfg: Config):
         ce = -logp.gather(1, safe[:, None])[:, 0]
         loss_sum = (ce * valid).sum()
         n_valid = valid.sum()
-        # per-class histograms (metrics.intersection_and_union on tensors)
-        pred = torch.where(labels == ignore, torch.full_like(pred, ignore),
-                           pred)
-        ids = torch.arange(classes, device=dev)
-        out_1h = pred[:, None] == ids[None, :]
-        tgt_hist = (labels[:, None] == ids[None, :]).sum(0)
-        inter = (out_1h & (pred == labels)[:, None]).sum(0)
-        union = out_1h.sum(0) + tgt_hist - inter
-        return loss_sum, n_valid, inter, union, tgt_hist
+        return (loss_sum, n_valid) + iou_histograms(pred, labels, classes,
+                                                    ignore)
 
     return step
 
 
-def host_batch_from_raw(raw: RawDistillBatch) -> DistillBatch:
-    """A host-geometry :class:`DistillBatch` from a raw one (the overflow
-    fallback): the NumPy builder with caps bucketed from this batch's own
-    voxel count, the level-0 buffers cut or zero-padded to its cap."""
+def iou_histograms(pred: torch.Tensor, labels: torch.Tensor, classes: int,
+                   ignore: int = 255):
+    """Per-class (intersection, union, target) counts on the device, as
+    ``metrics.intersection_and_union`` computes them on the host: a
+    prediction at an ignored label falls outside every class."""
+    labels = labels.long()
+    pred = torch.where(labels == ignore, torch.full_like(pred, ignore), pred)
+    ids = torch.arange(classes, device=pred.device)
+    out_1h = pred[:, None] == ids[None, :]
+    tgt = (labels[:, None] == ids[None, :]).sum(0)
+    inter = (out_1h & (pred == labels)[:, None]).sum(0)
+    return inter, out_1h.sum(0) + tgt - inter, tgt
+
+
+def host_batch_from_raw(raw):
+    """A host-geometry :class:`DistillBatch` (:class:`SegBatch`) from a
+    :class:`RawDistillBatch` (:class:`RawSegBatch`), the overflow fallback:
+    the host builder with caps bucketed from this batch's own voxel count,
+    the level-0 buffers cut or padded to its cap (labels with 255)."""
     n = int(raw.num)
     geo = build_unet_geometry(np.asarray(raw.coords[:n]),
                               caps=GeometryCaps.for_count(n))
@@ -285,14 +305,23 @@ def host_batch_from_raw(raw: RawDistillBatch) -> DistillBatch:
         width = [(0, cap0 - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
         return np.pad(a, width, constant_values=fill)
 
+    if isinstance(raw, RawSegBatch):
+        return SegBatch(geo=geo, feats=fit(raw.feats),
+                        labels=fit(raw.labels, 255), num_voxels=n)
     return DistillBatch(geo=geo, feats=fit(raw.feats),
                         feat_3d=fit(raw.feat_3d), mask=fit(raw.mask),
                         labels=fit(raw.labels, 255), num_voxels=n)
 
 
-class DistillTrainer:
-    def __init__(self, cfg: Config, allow_pseudo_text: bool = False,
-                 device=None):
+class DeviceGeometryTraining:
+    """What a trainer needs to train on geometry built on the device: raw
+    batches ``workers`` threads ahead of the step, one :class:`RawTrainStep`
+    per cap schedule and grid state, and the host fallback on overflow.
+    The trainer sets ``cfg``, ``device``, ``train_data``, ``batches_per_epoch``,
+    ``rng`` and ``step_fn`` and defines :meth:`assemble` and
+    :meth:`assemble_raw`."""
+
+    def _init_device_geometry(self, cfg: Config, device) -> None:
         if cfg.data_parallel > 1 or cfg.model_parallel > 1:
             raise NotImplementedError(
                 "multi-GPU training (data_parallel/model_parallel > 1) is "
@@ -301,9 +330,8 @@ class DistillTrainer:
         self.device = resolve_device(device)
         # geometry built on the device inside the step: "auto" is on for a
         # CUDA trainer, off on the CPU; "on" also works on the CPU
-        dg = str(cfg.device_geometry).lower()
-        self.device_geometry = (self.device.type == "cuda" if dg == "auto"
-                                else dg in ("on", "true", "1"))
+        self.device_geometry = device_geometry_on(cfg.device_geometry,
+                                                  self.device)
         self._train_caps: Optional[GeometryCaps] = None
         self._caps_lock = threading.Lock()
         self._dg_steps: Dict[Tuple, RawTrainStep] = {}
@@ -312,6 +340,107 @@ class DistillTrainer:
         self._grid_enabled = True
         self._overflow_streak = 0
         self.overflows = 0  # batches built again on the host
+
+    def assemble(self, samples):
+        """A host-geometry batch of ``samples``."""
+        raise NotImplementedError
+
+    def assemble_raw(self, samples, caps):
+        """``(raw batch, caps)`` of ``samples`` on the running ``caps``."""
+        raise NotImplementedError
+
+    @property
+    def global_step(self) -> int:
+        return self.step_fn.it
+
+    def _raw_step(self, caps: Tuple[int, ...]) -> RawTrainStep:
+        """The device-geometry step of one cap schedule and grid state."""
+        key = (caps, self._grid_enabled)
+        if key not in self._dg_steps:
+            self._dg_steps[key] = RawTrainStep(
+                self.step_fn, caps,
+                n_scenes=(max(self.cfg.batch_size, 1) if self._grid_enabled
+                          else None),
+                grid_dims0=tuple(self.cfg.grid_dims0) or None)
+        return self._dg_steps[key]
+
+    def _epoch_batches(self):
+        """Batches built ``workers`` threads ahead of the device step
+        (replaces the reference's DataLoader worker pool): host batches, or
+        ``(raw batch, caps)`` with device geometry."""
+        order = self.rng.permutation(len(self.train_data))
+        bs = max(self.cfg.batch_size, 1)
+
+        def build(i):
+            idxs = order[i * bs:(i + 1) * bs]
+            samples = [self.train_data.get(j) for j in idxs]
+            if not self.device_geometry:
+                return self.assemble(samples)
+            with self._caps_lock:
+                caps = self._train_caps
+            batch, caps = self.assemble_raw(samples, caps)
+            with self._caps_lock:
+                self._train_caps = caps
+            return batch, caps.fixed  # the caps of THIS batch's shapes
+
+        if self.cfg.workers <= 1:
+            for i in range(self.batches_per_epoch):
+                yield build(i)
+        else:
+            from ..data.prefetch import Prefetcher
+            yield from Prefetcher(build, range(self.batches_per_epoch),
+                                  workers=self.cfg.workers)
+
+    def train_step(self, batch):
+        """One update on a batch of :meth:`_epoch_batches`; returns the
+        step's result (device tensors).  A raw batch whose device geometry
+        overflows is built on the host and trained through the host step."""
+        if isinstance(batch, (DistillBatch, SegBatch)):
+            return self.step_fn(batch)
+        raw, caps = batch
+        out, overflow = self._raw_step(caps)(raw)
+        if not overflow:
+            self._overflow_streak = 0
+            return out
+        log.warning("device geometry overflowed (caps %s); building the "
+                    "batch on the host", caps)
+        self.overflows += 1
+        self._overflow_streak += 1
+        limit = self.cfg.grid_overflow_limit
+        if (limit > 0 and self._grid_enabled
+                and self._overflow_streak >= limit):
+            log.warning("%d overflows in a row: dropping the occupancy-grid "
+                        "prober (do the scenes exceed grid_dims0=%s?)",
+                        self._overflow_streak,
+                        tuple(self.cfg.grid_dims0) or "default")
+            self._grid_enabled = False
+            self._overflow_streak = 0
+        return self.step_fn(host_batch_from_raw(raw))
+
+    def _resume(self, path: str) -> Tuple[int, float]:
+        """Load a checkpoint into the model, the optimizer and the step
+        count: the port's own (``torch.save``) or the JAX package's (flax
+        msgpack, through ``convert``).  Returns ``(epoch, best_iou)``."""
+        payload, is_flax = read_checkpoint(path)
+        epoch = int(payload.get("epoch", 0))
+        if is_flax:
+            self.model.load_state_dict(params_from_jax(
+                payload["params"], payload["state"], self.cfg.arch_3d))
+            self.step_fn.it = optimizer_state_from_optax(
+                self.optimizer, self.model, payload["opt_state"])
+        else:
+            self.model.load_state_dict(payload["model"])
+            self.optimizer.load_state_dict(payload["optimizer"])
+            self.step_fn.it = epoch * self.batches_per_epoch
+        log.info("resumed from %s (epoch %d, %s checkpoint)", path, epoch,
+                 "JAX" if is_flax else "torch")
+        return epoch, float(payload.get("best_iou", 0.0))
+
+
+class DistillTrainer(DeviceGeometryTraining):
+    def __init__(self, cfg: Config, allow_pseudo_text: bool = False,
+                 device=None):
+        self._init_device_geometry(cfg, device)
         self.dim = output_dim(cfg.feature_2d_extractor)
         gen = torch.Generator().manual_seed(cfg.manual_seed)
         self.model = MinkUNet(3, self.dim, cfg.arch_3d,
@@ -352,83 +481,14 @@ class DistillTrainer:
                 split="val", aug=False, memcache=cfg.use_shm, eval_all=True,
                 input_color=cfg.input_color, seed=cfg.manual_seed + 1)
         if cfg.resume and isfile(cfg.resume):
-            payload = load_checkpoint(cfg.resume)
-            self.model.load_state_dict(payload["model"])
-            self.optimizer.load_state_dict(payload["optimizer"])
-            self.start_epoch = int(payload.get("epoch", 0))
-            self.best_iou = float(payload.get("best_iou", 0.0))
-            self.step_fn.it = self.start_epoch * self.batches_per_epoch
-            log.info("resumed from %s (epoch %d)", cfg.resume,
-                     self.start_epoch)
+            self.start_epoch, self.best_iou = self._resume(cfg.resume)
 
-    @property
-    def global_step(self) -> int:
-        return self.step_fn.it
+    def assemble(self, samples):
+        return assemble_distill_batch(samples, self.dim, rng=self.rng)
 
-    def _raw_step(self, caps: Tuple[int, ...]) -> RawTrainStep:
-        """The device-geometry step of one cap schedule and grid state."""
-        key = (caps, self._grid_enabled)
-        if key not in self._dg_steps:
-            self._dg_steps[key] = RawTrainStep(
-                self.step_fn, caps,
-                n_scenes=(max(self.cfg.batch_size, 1) if self._grid_enabled
-                          else None),
-                grid_dims0=tuple(self.cfg.grid_dims0) or None)
-        return self._dg_steps[key]
-
-    def _epoch_batches(self):
-        """Batches built ``workers`` threads ahead of the device step
-        (replaces the reference's DataLoader worker pool): DistillBatches,
-        or ``(RawDistillBatch, caps)`` with device geometry."""
-        order = self.rng.permutation(len(self.train_data))
-        bs = max(self.cfg.batch_size, 1)
-
-        def build(i):
-            idxs = order[i * bs:(i + 1) * bs]
-            samples = [self.train_data.get(j) for j in idxs]
-            if not self.device_geometry:
-                return assemble_distill_batch(samples, self.dim, rng=self.rng)
-            with self._caps_lock:
-                caps = self._train_caps
-            batch, caps = assemble_raw_distill_batch(samples, self.dim,
-                                                     caps=caps, rng=self.rng)
-            with self._caps_lock:
-                self._train_caps = caps
-            return batch, caps.fixed  # the caps of THIS batch's shapes
-
-        if self.cfg.workers <= 1:
-            for i in range(self.batches_per_epoch):
-                yield build(i)
-        else:
-            from ..data.prefetch import Prefetcher
-            yield from Prefetcher(build, range(self.batches_per_epoch),
-                                  workers=self.cfg.workers)
-
-    def train_step(self, batch) -> torch.Tensor:
-        """One update on a batch of :meth:`_epoch_batches`; returns the loss
-        as a 0-d device tensor.  A raw batch whose device geometry
-        overflows is built on the host and trained through the host step."""
-        if isinstance(batch, DistillBatch):
-            return self.step_fn(batch)
-        raw, caps = batch
-        loss, overflow = self._raw_step(caps)(raw)
-        if not overflow:
-            self._overflow_streak = 0
-            return loss
-        log.warning("device geometry overflowed (caps %s); building the "
-                    "batch on the host", caps)
-        self.overflows += 1
-        self._overflow_streak += 1
-        limit = self.cfg.grid_overflow_limit
-        if (limit > 0 and self._grid_enabled
-                and self._overflow_streak >= limit):
-            log.warning("%d overflows in a row: dropping the occupancy-grid "
-                        "prober (do the scenes exceed grid_dims0=%s?)",
-                        self._overflow_streak,
-                        tuple(self.cfg.grid_dims0) or "default")
-            self._grid_enabled = False
-            self._overflow_streak = 0
-        return self.step_fn(host_batch_from_raw(raw))
+    def assemble_raw(self, samples, caps):
+        return assemble_raw_distill_batch(samples, self.dim, caps=caps,
+                                          rng=self.rng)
 
     def train_epoch(self, epoch: int, writer: Optional[ScalarWriter] = None):
         loss_meter = AverageMeter()
@@ -497,17 +557,7 @@ class DistillTrainer:
 
 
 def main(argv=None):
-    argv = argv if argv is not None else sys.argv[1:]
-    cfg_path, device, rest = None, None, []
-    it = iter(argv)
-    for a in it:
-        if a == "--config" or a.startswith("--config="):
-            cfg_path = a.split("=", 1)[1] if "=" in a else next(it)
-        elif a == "--device" or a.startswith("--device="):
-            device = a.split("=", 1)[1] if "=" in a else next(it)
-        else:
-            rest.append(a)
-    cfg = load_config(cfg_path, tuple(rest))
+    cfg, device = load_cli(argv if argv is not None else sys.argv[1:])
     os.makedirs(join(cfg.save_path, "model"), exist_ok=True)
     trainer = DistillTrainer(cfg, device=device)
     return trainer.fit()

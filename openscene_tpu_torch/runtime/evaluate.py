@@ -14,8 +14,16 @@ Counterpart of ``openscene_tpu/runtime/evaluate.py`` (reference protocol
   **summed logits** across repeats before the final argmax
   (run/evaluate.py:263-278,414-425).
 
-Voxelization, batch assembly and geometry plans run on the host; the UNet
-forward, the ensemble and the text product run on the device.
+Voxelization and batch assembly run on the host; the UNet forward, the
+ensemble and the text product run on the device.  With ``device_geometry``
+on (``auto``: on for a CUDA evaluator, off on the CPU) the host ships each
+scene's padded level-0 coordinates (:class:`RawEvalBatch`, level caps that
+only ever grow) and the kernel maps are built on the device, as the train
+step builds them; a scene whose geometry overflows there is planned on the
+host (the C++ builder where g++ is present, else NumPy) and never run on the
+overflowed plans.  Without it every scene is planned on the host.  The
+fused features go to the device only in the modes that read them (fusion,
+ensemble).
 
 Run: ``python -m openscene_tpu_torch.runtime.evaluate --config <yaml>
 [--device cuda|cpu] [key value]*``
@@ -24,7 +32,6 @@ Run: ``python -m openscene_tpu_torch.runtime.evaluate --config <yaml>
 from __future__ import annotations
 
 import os
-import pickle
 import sys
 import time
 from os.path import join
@@ -34,16 +41,18 @@ import numpy as np
 import torch
 
 from .. import metrics
-from ..config import Config, dataset_name_from_root, load_config
-from ..data.batch import EvalBatch, assemble_eval_batch
+from ..config import Config, dataset_name_from_root, load_cli
+from ..data.batch import assemble_eval_batch, assemble_raw_eval_batch
 from ..data.loaders import FusedFeatureLoader
-from ..device import resolve_device
+from ..device import device_geometry_on, resolve_device
 from ..labels import NO_FEATURE_ID, labelset_and_palette
 from ..models.disnet import build_disnet, output_dim
 from ..models.sparse_unet import MinkUNet
 from ..sparse.geometry import geometry_to_device
+from ..sparse.geometry_device import build_geometry_parts, with_host_counts
+from ..sparse.types import UNetGeometry
 from ..text import extract_text_features
-from ..utils.train_utils import get_logger
+from ..utils.train_utils import get_logger, read_checkpoint
 
 log = get_logger()
 
@@ -61,35 +70,41 @@ def _normalize(f: torch.Tensor) -> torch.Tensor:
 def make_eval_step(mode: str, compute_dtype=torch.bfloat16,
                    constant_input: bool = True,
                    return_features: bool = False):
-    """Build the per-batch step ``step(model, text, batch)``.
+    """Build the per-batch step ``step(model, text, batch, geo=None)``.
 
     ``text`` is the (num_classes, D) fp32 embedding tensor on the device the
-    step runs on; ``batch`` an :class:`EvalBatch` of host arrays.  Returns
+    step runs on; ``batch`` an :class:`EvalBatch` of host arrays, or a
+    :class:`RawEvalBatch` with ``geo`` its geometry already on the device.
+    Only fusion and ensemble read (and copy) ``batch.feat_3d``.  Returns
     device tensors (point_logits, point_feat_mask[, point_features]); the
     optional third output is the per-point feature matrix the reference
     saves with ``save_feature_as_numpy`` (model output for distill, fused
     feature for fusion, the blended ``feat_ensemble`` for ensemble)."""
 
     @torch.no_grad()
-    def step(model: Optional[MinkUNet], text: torch.Tensor,
-             batch: EvalBatch):
+    def step(model: Optional[MinkUNet], text: torch.Tensor, batch,
+             geo: Optional[UNetGeometry] = None):
         device = text.device
         text_t = text.t().float()
 
         def model_features():
-            geo = geometry_to_device(batch.geo, device)
+            g = geo if geo is not None else geometry_to_device(batch.geo,
+                                                               device)
             x = torch.as_tensor(batch.feats, device=device).to(compute_dtype)
-            return model(x, geo, constant_input=constant_input)  # fp32
+            return model(x, g, constant_input=constant_input)  # fp32
 
-        fused = torch.as_tensor(batch.feat_3d, device=device)  # fp16
+        def fused_features():
+            return torch.as_tensor(batch.feat_3d, device=device)  # fp16
+
         if mode == "distill":
             feat_v = model_features()
             pred_v = feat_v @ text_t
         elif mode == "fusion":
-            feat_v = fused.float()
+            feat_v = fused_features().float()
             pred_v = feat_v @ text_t
         elif mode == "ensemble":
             out = model_features()
+            fused = fused_features()
             logit_d = _normalize(out) @ text_t
             logit_f = _normalize(fused).float() @ text_t
             use_fusion = logit_d.amax(-1) < logit_f.amax(-1)
@@ -107,6 +122,48 @@ def make_eval_step(mode: str, compute_dtype=torch.bfloat16,
         return point_logits, point_mask
 
     return step
+
+
+class SceneGeometry:
+    """Geometry of one eval scene at a time on the device (the zero-shot
+    and the seg evaluator): ``device_batch`` assembles the scene's raw batch
+    on the running level caps (which only grow) and builds its plans on the
+    device by the occupancy grid (``cfg.grid_dims0``), the stem as
+    occupancy unless the input is colour, as the raw train step does.
+    ``on`` is ``cfg.device_geometry`` resolved for ``device``."""
+
+    def __init__(self, cfg: Config, device: torch.device):
+        self.cfg, self.device = cfg, device
+        self.on = device_geometry_on(cfg.device_geometry, device)
+        self.caps = None       # the running level caps
+        self.overflows = 0     # scenes planned on the host after overflow
+
+    def build(self, coords: np.ndarray, num, caps):
+        """``(geometry with host level counts, overflow)`` of a padded
+        level-0 batch for the level caps ``caps``; under overflow the plans
+        are not valid."""
+        geo, overflow = build_geometry_parts(
+            torch.as_tensor(coords, device=self.device), int(num),
+            tuple(caps), stem_occupancy=not self.cfg.input_color,
+            n_scenes=1, grid_dims0=tuple(self.cfg.grid_dims0) or None)
+        return with_host_counts(geo, overflow)
+
+    def device_batch(self, assemble_raw):
+        """``(raw batch, geometry on the device)`` of one scene, where
+        ``assemble_raw(caps) -> (raw batch, caps)``; None when device
+        geometry is off, or when it overflowed (logged and counted: the
+        caller plans the scene on the host)."""
+        if not self.on:
+            return None
+        raw, self.caps = assemble_raw(self.caps)
+        geo, overflow = self.build(raw.coords, raw.num, self.caps.fixed)
+        if not overflow:
+            return raw, geo
+        self.overflows += 1
+        log.warning("device geometry overflowed (caps %s, grid_dims0 %s); "
+                    "planning the scene on the host", self.caps.fixed,
+                    tuple(self.cfg.grid_dims0) or "default")
+        return None
 
 
 class ZeroShotEvaluator:
@@ -140,6 +197,7 @@ class ZeroShotEvaluator:
         if self.mode != "fusion" and model is None:
             raise ValueError(f"feature_type={self.mode!r} needs a model")
         self.model = None if model is None else model.to(self.device).eval()
+        self.geometry = SceneGeometry(cfg, self.device)
         if cfg.vis_input or cfg.vis_pred or cfg.vis_gt:
             raise NotImplementedError(
                 "vis_input/vis_pred/vis_gt exports are not ported yet")
@@ -238,12 +296,26 @@ class ZeroShotEvaluator:
     def _scene_outputs(self, samples, step):
         """Yield (scene_idx, sample, step_outputs, n_points), one scene at a
         time on the evaluator's device."""
-        need_model = self.mode != "fusion"
         for i, sample in enumerate(samples):
-            batch = assemble_eval_batch([sample], self.dim,
-                                        need_model=need_model)
-            out = step(self.model, self.text, batch)
-            yield i, sample, out, batch.num_points
+            out, n_points = self.scene(sample, step)
+            yield i, sample, out, n_points
+
+    def scene(self, sample, step):
+        """``(step outputs, n_points)`` of one scene: its geometry built on
+        the device under ``device_geometry`` (fusion builds none), else on
+        the host, and on the host when the device's overflows."""
+        need_model = self.mode != "fusion"
+        need_fused = self.mode != "distill"
+        if need_model:
+            hit = self.geometry.device_batch(
+                lambda caps: assemble_raw_eval_batch(
+                    [sample], self.dim, caps=caps, need_fused=need_fused))
+            if hit is not None:
+                raw, geo = hit
+                return step(self.model, self.text, raw, geo), raw.num_points
+        batch = assemble_eval_batch([sample], self.dim, need_model=need_model,
+                                    need_fused=need_fused)
+        return step(self.model, self.text, batch), batch.num_points
 
     def _metric(self, logits: np.ndarray, gt: np.ndarray,
                 mask: np.ndarray) -> float:
@@ -258,66 +330,60 @@ class ZeroShotEvaluator:
 
 def load_model_for_eval(cfg: Config, device=None) -> Optional[MinkUNet]:
     """Model init + checkpoint load (skipped entirely in fusion mode,
-    run/evaluate.py:164-165).
-
-    ``cfg.model_path`` may be a reference ``.pth(.tar)`` checkpoint with
-    MinkowskiEngine names (converted), a torch file holding the port's own
-    ``MinkUNet`` state_dict (loaded as is), or a checkpoint written by the
-    port's trainer (its ``"model"`` entry).  Without a path the weights are
-    random, drawn from ``cfg.manual_seed``."""
+    run/evaluate.py:164-165); the weights as :func:`load_weights` reads
+    ``cfg.model_path``, random from ``cfg.manual_seed`` without a path."""
     if cfg.feature_type == "fusion":
         return None
     dev = resolve_device(device)
     model = build_disnet(cfg, torch.Generator().manual_seed(cfg.manual_seed))
+    load_weights(model, cfg)
+    return model.to(dev).eval()
+
+
+def load_weights(model: MinkUNet, cfg: Config) -> None:
+    """Load ``cfg.model_path`` into ``model`` (nothing without a path).
+
+    The path may be a checkpoint of the JAX package (flax msgpack:
+    ``params``/``state`` through ``convert.params_from_jax``), a reference
+    ``.pth(.tar)`` checkpoint with MinkowskiEngine names (converted), a
+    torch file holding the port's own ``MinkUNet`` state_dict (loaded as
+    is), or a checkpoint written by the port's trainers (its ``"model"``
+    entry)."""
+    from ..convert import params_from_jax
     path = cfg.model_path
     if path and "://" in path:
         raise NotImplementedError(
             f"checkpoint URLs are not fetched ({path}); pass a local path")
-    if path and os.path.isfile(path):
-        try:
-            payload = torch.load(path, map_location="cpu",
-                                 weights_only=False)
-        except pickle.UnpicklingError as e:
-            raise NotImplementedError(
-                f"{path} is not a torch checkpoint; the JAX package's "
-                "flax-msgpack checkpoints are not readable yet") from e
-        sd = payload
-        if isinstance(payload, dict):
-            sd = payload.get("model", payload.get("state_dict", payload))
-        if set(sd) == set(model.state_dict()):
-            model.load_state_dict(sd)
-            log.info("loaded port state_dict %s", path)
-        else:
-            from ..convert import params_from_jax
-            from ..utils.convert_checkpoint import convert_state_dict
-            sd = {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
-                  for k, v in sd.items()}
-            order = cfg.region_order or "x_fastest"
-            params, state = convert_state_dict(sd, cfg.arch_3d,
-                                               region_order=order)
-            model.load_state_dict(params_from_jax(params, state,
-                                                  cfg.arch_3d))
-            log.info("converted reference checkpoint %s (region order %s)",
-                     path, order)
-    elif path:
+    if not path:
+        return
+    if not os.path.isfile(path):
         raise FileNotFoundError(path)
-    return model.to(dev).eval()
+    payload, is_flax = read_checkpoint(path)
+    if is_flax:
+        model.load_state_dict(params_from_jax(payload["params"],
+                                              payload["state"], cfg.arch_3d))
+        log.info("loaded JAX checkpoint %s (epoch %s)", path,
+                 payload.get("epoch"))
+        return
+    sd = payload
+    if isinstance(payload, dict):
+        sd = payload.get("model", payload.get("state_dict", payload))
+    if set(sd) == set(model.state_dict()):
+        model.load_state_dict(sd)
+        log.info("loaded port state_dict %s", path)
+        return
+    from ..utils.convert_checkpoint import convert_state_dict
+    sd = {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
+          for k, v in sd.items()}
+    order = cfg.region_order or "x_fastest"
+    params, state = convert_state_dict(sd, cfg.arch_3d, region_order=order)
+    model.load_state_dict(params_from_jax(params, state, cfg.arch_3d))
+    log.info("converted reference checkpoint %s (region order %s)", path,
+             order)
 
 
 def main(argv=None):
-    argv = argv if argv is not None else sys.argv[1:]
-    cfg_path = None
-    device = None
-    rest = []
-    it = iter(argv)
-    for a in it:
-        if a == "--config" or a.startswith("--config="):
-            cfg_path = a.split("=", 1)[1] if "=" in a else next(it)
-        elif a == "--device" or a.startswith("--device="):
-            device = a.split("=", 1)[1] if "=" in a else next(it)
-        else:
-            rest.append(a)
-    cfg = load_config(cfg_path, tuple(rest))
+    cfg, device = load_cli(argv if argv is not None else sys.argv[1:])
     model = load_model_for_eval(cfg, device)
     ev = ZeroShotEvaluator(cfg, model, device=device)
     out_dir = cfg.save_folder if cfg.save_feature_as_numpy else ""

@@ -3,10 +3,11 @@
 Builds the full :class:`UNetGeometry` for a batch of voxelized scenes:
 the coordinate hierarchy over strides (1, 2, 4, 8, 16) and every kernel map
 the UNet needs, padded to static capacities.  A copy of
-``openscene_tpu/sparse/geometry.py`` with two changes: it builds no window
-plans (the CUDA kernels read the plain ``fwd`` maps, so ``wplans`` and
-``ewplans`` stay empty), and it has no native C++ branch (the NumPy builder
-produces the same arrays).
+``openscene_tpu/sparse/geometry.py`` that builds no window plans (the CUDA
+kernels read the plain ``fwd`` maps, so ``wplans`` and ``ewplans`` stay
+empty).  As there, the self plans and the down edges take the C++ builder of
+:mod:`.native` when it is available (``g++`` present) and NumPy otherwise;
+both give the same arrays bit for bit.
 
 This is the functional replacement of MinkowskiEngine's CoordinateManager
 (kernel-map construction, strided coordinate generation, transpose-conv
@@ -26,6 +27,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import native
 from .edge_conv import with_edge_layouts
 from .stencil_conv import build_conv_skip
 from .types import (ConvPlan, DownPlan, LevelGeometry, UNetGeometry,
@@ -164,6 +166,9 @@ def build_self_plan(level: LevelGeometry, kernel_size: int,
     offsets = stencil_offsets(kernel_size)
     K = len(offsets)
     fwd = _spread_nulls((K, cap), n, cap)
+    if native.available():
+        native.build_self_plan_native(level.coords, n, cap, offsets, fwd)
+        return ConvPlan(fwd=fwd, flip_perm=flip_permutation(offsets))
 
     valid = level.coords[:n]
     keys = pack_coords(valid)
@@ -189,6 +194,8 @@ def build_down_edge(fine: LevelGeometry, coarse_cap: Optional[int] = None,
     be passed instead of a fixed cap to size the level after counting.
     """
     n = int(fine.num)
+    if native.available():
+        return _build_down_edge_native(fine, n, coarse_cap, cap_fn)
     child = fine.coords[:n].astype(np.int64)
     parent_coords = child.copy()
     parent_coords[:, 1:] = np.floor_divide(child[:, 1:], 2)
@@ -212,6 +219,33 @@ def build_down_edge(fine: LevelGeometry, coarse_cap: Optional[int] = None,
 
     fwd = _spread_nulls((8, coarse_cap), n, fine.cap)
     fwd[off_id, inverse] = np.arange(n, dtype=np.int32)
+    return coarse, DownPlan(fwd=fwd, child_parent=child_parent,
+                            child_offset=child_offset)
+
+
+def _build_down_edge_native(fine: LevelGeometry, n: int,
+                            coarse_cap: Optional[int], cap_fn
+                            ) -> Tuple[LevelGeometry, DownPlan]:
+    """:func:`build_down_edge` by the C++ builder.  It numbers the parents in
+    their order of first appearance; they are renumbered in lex order, the
+    order of the NumPy builder, so the coarse level stays sorted."""
+    # without a fixed cap, fine.cap + 1 rows hold any parent count (n_parent
+    # <= n <= fine.cap - 1), so only a fixed cap can overflow
+    cap_guess = coarse_cap if coarse_cap is not None else fine.cap + 1
+    pc, cp, off_id = native.build_down_edge_native(fine.coords, n, cap_guess)
+    n_parent = len(pc)
+    if coarse_cap is None:
+        coarse_cap = cap_fn(n_parent)
+    order = np.lexsort((pc[:, 3], pc[:, 2], pc[:, 1], pc[:, 0]))
+    inv = np.empty_like(order)
+    inv[order] = np.arange(n_parent)
+    coarse = _pad_level(pc[order], coarse_cap)
+    child_parent = _spread_nulls((fine.cap,), n_parent, coarse_cap)
+    child_parent[:n] = inv[cp].astype(np.int32)
+    child_offset = np.zeros(fine.cap, dtype=np.int32)
+    child_offset[:n] = off_id
+    fwd = _spread_nulls((8, coarse_cap), n, fine.cap)
+    fwd[child_offset[:n], child_parent[:n]] = np.arange(n, dtype=np.int32)
     return coarse, DownPlan(fwd=fwd, child_parent=child_parent,
                             child_offset=child_offset)
 

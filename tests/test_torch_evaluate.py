@@ -18,6 +18,14 @@ Tolerances, per mode:
 * argmax agreement >= 99.5% at points whose reference top-2 margin is at
   least 1e-3;
 * mIoU from ``run()`` equal to 1e-3.
+
+Geometry built on the device (``device_geometry on``, here on the CPU)
+against the host route: on the same level caps the logits are equal bit for
+bit (the plans are, and the forward is deterministic), and ``run()`` gives
+the host route's mIoU to 1e-3 (its caps grow across scenes, so padding
+differs); a scene whose device geometry overflows is planned on the host
+and gives the host route's logits exactly.  Distill mode builds and copies
+no ``feat_3d``.
 """
 
 import numpy as np
@@ -32,7 +40,10 @@ from openscene_tpu.runtime.evaluate import \
 from openscene_tpu_torch.config import Config
 from openscene_tpu_torch.convert import params_from_jax
 from openscene_tpu_torch.models import MinkUNet
-from openscene_tpu_torch.runtime.evaluate import ZeroShotEvaluator
+from openscene_tpu_torch.data.batch import assemble_eval_batch
+from openscene_tpu_torch.runtime.evaluate import (ZeroShotEvaluator,
+                                                  make_eval_step)
+from openscene_tpu_torch.sparse.geometry import GeometryCaps
 from openscene_tpu_torch.sparse.edge_conv import down_conv_fwd
 from openscene_tpu_torch.sparse.stencil_conv import stencil_conv_fwd
 from tests.test_torch_unet import _one_thread, numpy_unet_trees  # noqa: F401
@@ -137,9 +148,11 @@ def test_load_model_for_eval(setup, tmp_path):
     want = params_from_jax(*convert_state_dict(me, ARCH), ARCH)
     assert all(torch.equal(got[k], want[k]) for k in want)
 
+    # a truncated flax-msgpack file (the JAX package's checkpoints load
+    # through tests/test_torch_checkpoint.py)
     cfg.model_path = str(tmp_path / "model_best.ckpt")
     (tmp_path / "model_best.ckpt").write_bytes(b"\x81\xa5flax!")
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    with pytest.raises(ValueError, match="msgpack.*truncated"):
         load_model_for_eval(cfg, "cpu")
 
 
@@ -166,3 +179,74 @@ def test_cli_main_matches_jax_in_fusion_mode(tmp_path):
     feat = np.load(tmp_path / "port" / name)
     assert feat.dtype == np.float16 and feat.shape[1] == 768
     np.testing.assert_array_equal(feat, np.load(tmp_path / "jax" / name))
+
+
+def _evaluators(setup, mode, **kw):
+    """(device-geometry evaluator, host-geometry evaluator) on the CPU."""
+    d3, dfeat, params, state, model = setup
+    text = class_prototypes(20, DIM)
+    _, cfg = _cfgs(d3, dfeat, mode)
+    return tuple(ZeroShotEvaluator(cfg.copy(device_geometry=dg, **kw), model,
+                                   text_features=text, device="cpu")
+                 for dg in ("on", "auto"))
+
+
+@pytest.mark.parametrize("mode", ["distill", "ensemble"])
+def test_device_geometry_matches_host_on_equal_caps(setup, mode):
+    dev, host = _evaluators(setup, mode)
+    assert dev.geometry.on and not host.geometry.on
+    loader = dev._loader()
+    for i in range(len(loader.data_paths)):
+        sample = loader.get(i)
+        got, n = dev.scene(sample, dev.step)
+        caps = dev.geometry.caps
+        batch = assemble_eval_batch([sample], DIM, caps=GeometryCaps(
+            cap0=caps.cap0, fixed=caps.fixed))
+        ref = host.step(host.model, host.text, batch)
+        assert n == batch.num_points
+        assert torch.equal(got[0][:n], ref[0][:n])
+        assert torch.equal(got[1][:n], ref[1][:n])
+    assert dev.geometry.overflows == 0
+    miou_dev, miou_host = dev.run()["miou"], host.run()["miou"]
+    assert abs(miou_dev - miou_host) <= 1e-3
+
+
+def test_overflowing_scene_takes_the_host_route(setup, caplog):
+    # a level-0 grid of 8^3 cells holds none of the scenes: every scene
+    # overflows on the device and is planned on the host
+    dev, host = _evaluators(setup, "distill", grid_dims0=(8, 8, 8))
+    loader = dev._loader()
+    for i in range(len(loader.data_paths)):
+        sample = loader.get(i)
+        got, n = dev.scene(sample, dev.step)
+        ref, m = host.scene(sample, host.step)
+        assert n == m and torch.equal(got[0], ref[0])
+    assert dev.geometry.overflows == len(loader.data_paths)
+    assert "planning the scene on the host" in caplog.text
+
+
+@pytest.mark.parametrize("mode", ["distill", "ensemble"])
+def test_only_fusion_and_ensemble_copy_feat_3d(setup, mode):
+    seen = []
+    for ev in _evaluators(setup, mode):
+        step = ev.step
+
+        def recording(model, text, batch, geo=None, step=step):
+            seen.append(batch.feat_3d)
+            return step(model, text, batch, geo)
+
+        ev.step = recording  # run() steps every scene through self.step
+        ev.run()
+    assert len(seen) == 4
+    assert all((f is None) == (mode == "distill") for f in seen)
+    # the distill step never touches feat_3d; fusion needs it
+    d3, dfeat, params, state, model = setup
+    sample = ZeroShotEvaluator(_cfgs(d3, dfeat, "fusion")[1],
+                               text_features=class_prototypes(20, DIM),
+                               device="cpu")._loader().get(0)
+    batch = assemble_eval_batch([sample], DIM, need_fused=False)
+    text = torch.as_tensor(class_prototypes(20, DIM))
+    out = make_eval_step("distill")(model, text, batch)
+    assert torch.isfinite(out[0]).all()
+    with pytest.raises((TypeError, RuntimeError)):
+        make_eval_step("fusion")(None, text, batch)

@@ -2,8 +2,9 @@
 package's.
 
 The same seeded scenes go through ``openscene_tpu`` (with and without its
-native C++ kernel-map builder) and ``openscene_tpu_torch`` (NumPy builder
-only); every array of the resulting ``UNetGeometry`` and ``EvalBatch`` must
+native C++ kernel-map builder) and ``openscene_tpu_torch`` (its own copy of
+the C++ builder where g++ is present; ``tests/test_torch_native.py`` holds it
+against its NumPy builder); every array of the resulting ``UNetGeometry`` and ``EvalBatch`` must
 match exactly, dtype included.
 """
 

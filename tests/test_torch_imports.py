@@ -2,7 +2,9 @@
 
 * Every module of ``openscene_tpu_torch``, and ``chip_smoke.py``, imports in
   a fresh interpreter whose meta path refuses ``jax``, ``jaxlib``, ``flax``,
-  ``optax`` and ``openscene_tpu``: the port imports none of them.
+  ``optax``, ``msgpack`` and ``openscene_tpu``: the port imports none of
+  them.  Importing the package tunes the host allocator
+  (``utils/hostmem.py``), as the JAX package's import does.
 * With ``device="cpu"`` nothing touches another device.
 * Asking for CUDA, explicitly or by default, without CUDA raises, and a
   kernel wrapper given a tensor that is neither on the CPU nor on CUDA
@@ -31,7 +33,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORTS = r'''
 import importlib, importlib.abc, importlib.util, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "openscene_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "openscene_tpu")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -46,6 +48,8 @@ for m in pkgutil.walk_packages(openscene_tpu_torch.__path__,
                                "openscene_tpu_torch."):
     importlib.import_module(m.name)
     names.append(m.name)
+from openscene_tpu_torch.utils import hostmem
+assert hostmem._done, "importing the package did not call warm_malloc"
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -66,7 +70,9 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                 "sparse.stencil_conv", "sparse.ops", "convert",
                 "sparse.geometry_device", "sparse.grid", "sparse.pack",
                 "scripts.dev_bench_ops", "scripts.dev_pack_bench",
-                "scripts.dev_up_tiles", "scripts.timing"):
+                "scripts.dev_up_tiles", "scripts.timing",
+                "runtime.train_seg", "runtime.eval_seg", "sparse.native",
+                "utils.hostmem", "utils.flax_msgpack"):
         assert "openscene_tpu_torch." + mod in names
 
 
@@ -132,6 +138,18 @@ def test_wrapper_never_falls_back_off_cpu(wrapper, K):
     with pytest.raises(ValueError, match="CUDA tensor"):
         wrapper(x, w, plan)
     assert wrapper.launches == 0
+
+
+@pytest.mark.parametrize("entry", ["train_seg", "eval_seg"])
+def test_seg_entry_points_default_to_cuda(monkeypatch, entry):
+    from openscene_tpu_torch.config import Config
+    from openscene_tpu_torch.runtime import eval_seg, train_seg
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="not available"):
+        if entry == "train_seg":
+            train_seg.SegTrainer(Config())
+        else:
+            eval_seg.evaluate_seg(Config())
 
 
 def test_trainer_defaults_to_cuda(monkeypatch):
