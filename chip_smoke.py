@@ -87,12 +87,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    parameters held to the gradients' distance); ``runtime.eval_seg.
    evaluate_seg`` on the 2 val scenes at one repeat, 32/4/4 launches per
    scene: voxels/s and the mIoU of barely trained weights (a smoke value);
-8. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
+8. drives multi-view fusion (``fusion.fuse.MultiViewFuser`` on ``cuda``)
+   at the ScanNet spec (320x240, ``SCANNET_INTRINSIC``, vis_thres 0.25,
+   cut_bound 10) and OpenSeg width: (a) scene 0 at bench density (186,927
+   points) over 100 look_at views inside the room, depth z-buffered from
+   the points, 768-d fp16 maps built on the host from the class prototypes
+   of each pixel's nearest point's label; wall ms, the maps' host ms, the
+   copies' and kernels' device ms of a profiled run of 10 views, views/s,
+   scenes/s and peak device memory; where a point's views agree on the
+   label, the argmax of its fused feature against the prototypes must be
+   its label at >= 99% of such points; (b) 4 of those views' sums and
+   counts against a float64 NumPy transcription of the reference loop,
+   every visibility disagreement a .5 tie within 1e-3 px or a depth test
+   within 1e-4 of its threshold, sums within 1e-5 of the scale; (c)
+   ``run_fusion.fuse_dataset("nuscenes")`` on the card on a layout of
+   ``.npy`` cameras and no depth (no PIL), against the reference fusion
+   script's transcription (mask equal, features within one fp16 ulp); (d)
+   scene 0's fused features as a val blob through ``ZeroShotEvaluator`` in
+   fusion mode on the card: finite logits, the feature mask on the voxels
+   fusion saw.  None of the seven kernels launches;
+9. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
    train batch with few iterations: each up conv forward and
    forward+backward by the model's route against the dense route;
-9. prints the eval, train, hostmem and seg summaries, the card line, one
-   ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device":
-   {...}}``.
+10. prints the eval, train, hostmem, seg and fusion summaries, the card
+   line, one ``{"kernels": [...]}`` JSON line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It also exits non-zero when CUDA is unavailable, or when the port's
@@ -1333,6 +1352,463 @@ def hostmem_phase(d3, dfeat, card, batches=3):
     return out
 
 
+# multi-view fusion at the ScanNet spec (fusion/datasets.py SPECS["scannet"])
+FUSION_VIEWS = 100          # ScanNet's every-20th-frame export of a scene
+FUSION_PROFILED_VIEWS = 10  # views of the profiled run (device split)
+FUSION_CHECK_VIEWS = 4      # views held against the float64 reference loop
+FUSION_AGREE = 0.99         # argmax = label share where the views agree
+FUSION_FEAT_TOL = 1e-5      # card sums against float64, of their scale
+TIE_PX = 1e-3               # a projected coordinate this close to a .5 tie
+DEPTH_EDGE = 1e-4           # a depth test this close to its threshold
+CLASSES = 20
+
+
+def look_at(eye, target):
+    """camera_to_world with +z looking from eye to target
+    (``tests/test_fusion.py:look_at_pose``)."""
+    import numpy as np
+    fwd = np.asarray(target, float) - np.asarray(eye, float)
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, [0, 0, 1.0])
+    if np.linalg.norm(right) < 1e-6:
+        right = np.array([1.0, 0, 0])
+    right /= np.linalg.norm(right)
+    up = np.cross(fwd, right)
+    pose = np.eye(4)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2], pose[:3, 3] = right, up, fwd, eye
+    return pose
+
+
+def zbuffer(pose, intr, coords, W, H):
+    """(depth (H, W) fp32, 0 where no point; nearest point's index (H, W),
+    -1 there): the points themselves z-buffered, vectorised."""
+    import numpy as np
+    inv = np.linalg.inv(pose)
+    p = coords @ inv[:3, :3].T + inv[:3, 3]
+    z = p[:, 2]
+    ok = z > 1e-6
+    u = np.round(p[ok, 0] * intr[0, 0] / z[ok] + intr[0, 2])
+    v = np.round(p[ok, 1] * intr[1, 1] / z[ok] + intr[1, 2])
+    idx = np.flatnonzero(ok)
+    inb = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    pix = (v[inb] * W + u[inb]).astype(np.int64)
+    idx, zz = idx[inb], z[idx[inb]]
+    order = np.lexsort((zz, pix))  # by pixel, nearest first
+    first = np.ones(len(order), bool)
+    first[1:] = pix[order[1:]] != pix[order[:-1]]
+    sel = order[first]
+    depth = np.zeros(H * W, np.float32)
+    depth[pix[sel]] = zz[sel]
+    nearest = np.full(H * W, -1, np.int64)
+    nearest[pix[sel]] = idx[sel]
+    return depth.reshape(H, W), nearest.reshape(H, W)
+
+
+def fusion_scene():
+    """Scene 0 at bench density (a ScanNet-sized room), FUSION_VIEWS look_at
+    cameras at eye height inside the room looking across it, each view's
+    depth z-buffered from the scene's points and its label image: the
+    label of the nearest labelled point (the 2% of points marked ignore lie
+    on the same surfaces), the background index CLASSES where there is
+    none."""
+    import numpy as np
+    from openscene_tpu_torch.data.synthetic import make_scene
+    from openscene_tpu_torch.fusion.datasets import SCANNET_INTRINSIC, SPECS
+    coords, colors, labels = make_scene(0, density=DENSITY)
+    W, H = SPECS["scannet"].image_dim
+    intr = SCANNET_INTRINSIC[:3, :3]
+    rng = np.random.default_rng(0)
+    labelled = np.flatnonzero(labels != 255)
+    lo, hi = coords.min(0), coords.max(0)
+    centre, ext = (lo + hi) / 2, hi - lo
+    cams, label_imgs = [], []
+    for i in range(FUSION_VIEWS):
+        ang = 2 * np.pi * i / FUSION_VIEWS + rng.uniform(-0.2, 0.2)
+        r = rng.uniform(0.1, 0.45)
+        eye = centre + [r * ext[0] * np.cos(ang), r * ext[1] * np.sin(ang),
+                        0.0]
+        eye[2] = lo[2] + rng.uniform(1.0, 1.8)
+        target = centre - (eye - centre) * rng.uniform(0.5, 1.5)
+        target[2] = lo[2] + rng.uniform(0.2, 1.2)
+        pose = look_at(eye, target)
+        depth, _ = zbuffer(pose, intr, coords, W, H)
+        _, nearest = zbuffer(pose, intr, coords[labelled], W, H)
+        cams.append((pose, intr, depth))
+        label_imgs.append(np.where(nearest >= 0,
+                                   labels[labelled[nearest]], CLASSES))
+    return coords, colors, labels, cams, np.stack(label_imgs)
+
+
+def feature_maps(label_imgs, dim):
+    """The teacher stand-in: ``fn(i)`` -> view i's (dim, H, W) fp16 map,
+    each pixel its label's prototype (``class_prototypes(CLASSES, dim)``),
+    zeros without a point; and the prototypes."""
+    import numpy as np
+    from openscene_tpu_torch.data.synthetic import class_prototypes
+    protos = class_prototypes(CLASSES, dim)
+    table = np.vstack([protos, np.zeros((1, dim), np.float32)]).T.astype(
+        np.float16).view(np.uint16)  # (dim, CLASSES + 1)
+
+    def fn(i):
+        lab = label_imgs[i]
+        out = np.empty((dim,) + lab.shape, np.uint16)
+        for c in range(dim):  # per channel: 3x faster than one take
+            np.take(table[c], lab, out=out[c], mode="clip")
+        return out.view(np.float16)
+    return fn, protos
+
+
+def fusion_reference_check(fuser, coords, cams, fn, spec, card):
+    """(b) the card's sum_feat and counter over the first
+    FUSION_CHECK_VIEWS views against a float64 NumPy transcription of the
+    reference loop (``PointCloudToImageMapper``, as
+    ``tests/test_fusion.py:177-199`` writes it).  Every visibility or pixel
+    disagreement must be a projected coordinate within TIE_PX of a .5 tie or
+    a depth test within DEPTH_EDGE (relative) of its threshold; sums of the
+    points mapped alike in every view agree within FUSION_FEAT_TOL of the
+    scale, their counts exactly."""
+    import numpy as np
+    import torch
+    from openscene_tpu_torch.fusion.mapper import (PointCloudToImageMapper,
+                                                   compute_mapping_torch)
+    sub = cams[:FUSION_CHECK_VIEWS]
+    W, H = spec.image_dim
+    sum_feat, counter = fuser.accumulate(coords, sub, fn)
+    dev = sum_feat.device
+    v, u, vis = compute_mapping_torch(
+        torch.as_tensor(np.stack([c[0] for c in sub]), device=dev),
+        torch.as_tensor(np.stack([c[1] for c in sub]), device=dev),
+        torch.as_tensor(coords, dtype=torch.float32, device=dev),
+        torch.as_tensor(np.stack([c[2] for c in sub]), device=dev),
+        (W, H), spec.vis_thres, spec.cut_bound)
+    v, u, vis = v.cpu().numpy(), u.cpu().numpy(), vis.cpu().numpy()
+    if not np.array_equal(counter.cpu().numpy(), vis.sum(0)):
+        raise AssertionError("fusion: the fuser's counter is not the sum of "
+                             "its views' visibility")
+    mapper = PointCloudToImageMapper(spec.image_dim, spec.vis_thres,
+                                     spec.cut_bound)
+    n = len(coords)
+    ref_sum = np.zeros((n, fuser.feat_dim))
+    ref_cnt = np.zeros(n, np.int64)
+    alike = np.ones(n, bool)
+    kinds = {"tie": 0, "depth_edge": 0, "unexplained": 0}
+    homo = np.concatenate([coords, np.ones((n, 1))], axis=1).T
+    for j, (pose, intr, depth) in enumerate(sub):
+        mapping = mapper.compute_mapping(pose, coords, depth, intr)
+        mask = mapping[:, 2] == 1
+        fmap = fn(j)
+        ref_sum[mask] += fmap[:, mapping[mask, 0], mapping[mask, 1]].T
+        ref_cnt[mask] += 1
+        differ = (mask != vis[j]) | (mask & ((mapping[:, 0] != v[j])
+                                             | (mapping[:, 1] != u[j])))
+        alike &= ~differ
+        if not differ.any():
+            continue
+        p = np.linalg.inv(pose) @ homo[:, differ]
+        uf = p[0] * intr[0][0] / p[2] + intr[0][2]
+        vf = p[1] * intr[1][1] / p[2] + intr[1][2]
+        tie = ((np.abs(uf - np.floor(uf) - 0.5) < TIE_PX)
+               | (np.abs(vf - np.floor(vf) - 0.5) < TIE_PX))
+        edge = np.zeros(len(uf), bool)
+        for rows, cols in ((np.round(vf), np.round(uf)),
+                           (v[j][differ], u[j][differ])):
+            rows = np.clip(rows, 0, H - 1).astype(np.int64)
+            cols = np.clip(cols, 0, W - 1).astype(np.int64)
+            d = depth[rows, cols].astype(np.float64)
+            thr = spec.vis_thres * d
+            edge |= np.abs(np.abs(d - p[2]) - thr) <= DEPTH_EDGE * thr
+        kinds["tie"] += int(tie.sum())
+        kinds["depth_edge"] += int((edge & ~tie).sum())
+        kinds["unexplained"] += int((~tie & ~edge).sum())
+    got_sum = sum_feat.cpu().numpy()
+    got_cnt = counter.cpu().numpy()
+    scale = float(np.abs(ref_sum).max())
+    err = float(np.abs(got_sum[alike] - ref_sum[alike]).max())
+    out = dict(kinds, views=len(sub), points_mapped_alike=int(alike.sum()),
+               visible_card=int((got_cnt > 0).sum()),
+               visible_ref=int((ref_cnt > 0).sum()), max_abs_err=err,
+               scale=scale, tol=FUSION_FEAT_TOL * scale)
+    print(f"fusion vs float64 reference loop ({len(sub)} views at "
+          f"{W}x{H}, {n} points): disagreements {kinds['tie']} at a .5 "
+          f"tie, {kinds['depth_edge']} at the depth threshold, "
+          f"{kinds['unexplained']} unexplained; sums of "
+          f"{out['points_mapped_alike']} points mapped alike: max|diff| "
+          f"{err:.3e} of scale {scale:.3e} [{card}]", flush=True)
+    if kinds["unexplained"]:
+        raise AssertionError(f"fusion: {kinds['unexplained']} visibility "
+                             "disagreements with the float64 reference "
+                             "are neither ties nor depth-threshold cases")
+    if not np.array_equal(got_cnt[alike], ref_cnt[alike]):
+        raise AssertionError("fusion: counts differ from the reference")
+    if not err <= FUSION_FEAT_TOL * scale:
+        raise AssertionError(f"fusion: sums differ from the float64 "
+                             f"reference by {err} (scale {scale})")
+    return out
+
+
+def fusion_cli_check(device, card):
+    """(c) ``fuse_dataset("nuscenes")`` on the card, on a layout of
+    ``.npy`` poses and intrinsics and no depth (no PIL on the way), as
+    ``tests/test_fusion.py:139-176`` builds one: the blob's mask equals the
+    reference fusion script's literal transcription, its features within
+    one fp16 ulp of it."""
+    import numpy as np
+    from openscene_tpu_torch.fusion.datasets import SPECS
+    from openscene_tpu_torch.fusion.mapper import (PointCloudToImageMapper,
+                                                   make_intrinsic)
+    from openscene_tpu_torch.fusion.run_fusion import fuse_dataset
+    root = os.path.join(HERE, "build", "smoke_fusion", "nuscenes")
+    shutil.rmtree(root, ignore_errors=True)
+    spec = SPECS["nuscenes"]
+    W, H = spec.image_dim
+    C, n, sid, cams = 8, 400, "scene0", ("back", "front")
+    rng = np.random.default_rng(0)
+    coords = (rng.random((n, 3)) * [20, 20, 4] - [10, 10, 2]).astype(
+        np.float32)
+    labels = np.full(n, 255, np.int64)
+    labels[rng.choice(n, n // 2, replace=False)] = rng.integers(0, 16,
+                                                                n // 2)
+    d3 = os.path.join(root, "nuscenes_3d")
+    os.makedirs(d3)
+    np.savez(os.path.join(d3, f"{sid}.npz"), coords=coords, labels=labels)
+    intr = make_intrinsic(400.0, 400.0, W / 2, H / 2)
+    poses = {"back": look_at([0, -25, 1], [0, 0, 0]),
+             "front": look_at([0, 25, 1], [0, 0, 0])}
+    fmaps = {}
+    for cam in cams:
+        for sub, arr in (("pose", poses[cam]), ("K", intr)):
+            os.makedirs(os.path.join(root, "nuscenes_2d", sid, sub),
+                        exist_ok=True)
+            np.save(os.path.join(root, "nuscenes_2d", sid, sub,
+                                 f"{cam}.npy"), arr)
+        fmaps[cam] = rng.standard_normal((C, H, W)).astype(np.float32)
+        os.makedirs(os.path.join(root, "feats", sid), exist_ok=True)
+        np.save(os.path.join(root, "feats", sid, f"{cam}.npy"), fmaps[cam])
+    out_dir = os.path.join(root, "out")
+    fuse_dataset("nuscenes", d3, os.path.join(root, "nuscenes_2d"), out_dir,
+                 split="train", feat_dir=os.path.join(root, "feats"),
+                 feat_dim=C, device=device)
+    blob = np.load(os.path.join(out_dir, f"{sid}.npz"))
+    # --- literal transcription of the reference fusion script ---
+    mask_entire = labels != 255
+    locs = coords.astype(np.float64)[mask_entire]
+    m = locs.shape[0]
+    counter = np.zeros((m, 1))
+    sum_features = np.zeros((m, C))
+    vis_id = np.zeros((m, len(cams)), dtype=int)
+    mapper = PointCloudToImageMapper(spec.image_dim,
+                                     cut_bound=spec.cut_bound)
+    for img_id, cam in enumerate(cams):
+        mapping = np.ones([m, 4], dtype=int)
+        mapping[:, 1:4] = mapper.compute_mapping(poses[cam], locs,
+                                                 depth=None, intrinsic=intr)
+        mask = mapping[:, 3]
+        vis_id[:, img_id] = mask
+        feat_2d_3d = fmaps[cam][:, mapping[:, 1], mapping[:, 2]].T
+        counter[mask != 0] += 1
+        sum_features[mask != 0] += feat_2d_3d[mask != 0]
+    counter[counter == 0] = 1e-5
+    feat_bank = sum_features / counter
+    point_ids = np.unique(np.nonzero(vis_id)[0])
+    mask = np.zeros(m, dtype=bool)
+    mask[point_ids] = True
+    ref_mask_full = mask_entire.copy()
+    ref_mask_full[mask_entire] = mask
+    ref_feat = feat_bank[mask].astype(np.float16)
+    got = blob["feat"]
+    ulp = np.spacing(np.abs(ref_feat)).astype(np.float32)
+    diff = np.abs(got.astype(np.float32) - ref_feat.astype(np.float32))
+    out = {"points": n, "labelled": int(mask_entire.sum()),
+           "visible": int(mask.sum()), "feat_equal": int((diff == 0).sum()),
+           "feat_values": int(diff.size),
+           "max_diff_in_ulps": float((diff / ulp).max()) if diff.size
+           else 0.0}
+    print(f"fusion cli nuscenes (fuse_dataset on the card, no depth, no "
+          f"PIL): {out['visible']} of {out['labelled']} labelled points "
+          f"visible, mask_full equal: "
+          f"{np.array_equal(blob['mask_full'], ref_mask_full)}, feat "
+          f"{out['feat_equal']}/{out['feat_values']} values equal, max "
+          f"{out['max_diff_in_ulps']:.2f} fp16 ulp [{card}]", flush=True)
+    if not (out["visible"] > 20
+            and np.array_equal(blob["mask_full"], ref_mask_full)
+            and got.shape == ref_feat.shape and (diff <= ulp).all()):
+        raise AssertionError("fusion: the nuScenes blob differs from the "
+                             "reference fusion script's transcription")
+    return out
+
+
+def fusion_eval_check(scene, bank, ids, protos, device, card):
+    """(d) stage 1 into stage 3: scene 0's fused features saved as a val
+    blob ``{sid}_0.npz`` and ``ZeroShotEvaluator`` run on them in fusion
+    mode on the card, the prototypes as text: finite logits, and the
+    feature mask set on every voxel whose points fusion all saw and on no
+    voxel whose points it saw none of."""
+    import numpy as np
+    from openscene_tpu_torch.config import Config
+    from openscene_tpu_torch.data.scene_io import (save_fused_features,
+                                                   save_scene)
+    from openscene_tpu_torch.runtime.evaluate import ZeroShotEvaluator
+    coords, colors, labels = scene
+    root = os.path.join(HERE, "build", "smoke_fusion", "eval")
+    shutil.rmtree(root, ignore_errors=True)
+    d3 = os.path.join(root, "scannet_3d")
+    dfeat = os.path.join(root, "scannet_multiview")
+    os.makedirs(os.path.join(d3, "val"))
+    os.makedirs(dfeat)
+    sid = "scene0000_00"
+    seen = np.zeros(len(coords), bool)
+    seen[ids] = True
+    save_scene(os.path.join(d3, "val", sid + ".npz"), coords, colors, labels)
+    save_fused_features(os.path.join(dfeat, f"{sid}_0.npz"),
+                        bank[seen].astype(np.float16), seen)
+    cfg = Config(data_root=d3, data_root_2d_fused_feature=dfeat,
+                 feature_2d_extractor="openseg", voxel_size=VOXEL,
+                 split="val", feature_type="fusion", test_repeats=1,
+                 test_workers=1, manual_seed=0, text_embedding_cache="")
+    ev = ZeroShotEvaluator(cfg, text_features=protos, device=device)
+    t0 = time.time()
+    res = ev.run()
+    dt = time.time() - t0
+    sample = ev._loader().get(0)
+    out, n = ev.scene(sample, ev.step)
+    logits = out[0][:n]
+    mask = out[1][:n].cpu().numpy() > 0.5
+    vox = np.asarray(sample.inds_reconstruct)
+    size = np.bincount(vox)
+    n_seen = np.bincount(vox, weights=seen)
+    all_seen, none_seen = (n_seen == size)[vox], (n_seen == 0)[vox]
+    wrong = int(((all_seen & ~mask) | (none_seen & mask)).sum())
+    stats = {"points": int(n), "voxels": int(len(size)),
+             "mask_points": int(mask.sum()), "seen_points": int(seen.sum()),
+             "seen_covered": float((mask & seen).sum() / seen.sum()),
+             "wrong_mask_points": wrong, "miou": res["miou"],
+             "seconds": dt}
+    print(f"fusion into eval (ZeroShotEvaluator fusion mode on the card, "
+          f"prototypes as text): {n} points in {stats['voxels']} voxels, "
+          f"feature mask on {stats['mask_points']} points, fusion saw "
+          f"{stats['seen_points']} ({stats['seen_covered']:.4f} of them "
+          f"masked), {wrong} points masked against their voxel's points, "
+          f"mIoU {res['miou']:.4f}, {dt:.2f}s [{card}]", flush=True)
+    if not (logits.shape == (len(coords), CLASSES)
+            and bool(logits.isfinite().all()) and np.isfinite(res["miou"])):
+        raise AssertionError("fusion eval: logits or mIoU not finite")
+    if wrong:
+        raise AssertionError(f"fusion eval: {wrong} points' feature mask "
+                             "disagrees with what fusion saw")
+    return stats
+
+
+def fusion_phase(card, device):
+    """Multi-view fusion on ``cuda`` at the ScanNet spec (320x240,
+    ``SCANNET_INTRINSIC``, vis_thres 0.25, cut_bound 10), OpenSeg width:
+    (a) ``MultiViewFuser.fuse_scene`` of scene 0 over FUSION_VIEWS views, timed
+    (wall, the teacher's host ms) and profiled on FUSION_PROFILED_VIEWS
+    views (copies and kernels), the argmax gate; (b)-(d) the reference
+    loop, the nuScenes CLI path and the evaluator, as their functions say.
+    Fusion launches none of the seven kernels: their counts stay 0."""
+    import numpy as np
+    import torch
+    from openscene_tpu_torch.fusion.datasets import SPECS
+    from openscene_tpu_torch.fusion.fuse import MultiViewFuser
+    from openscene_tpu_torch.fusion.mapper import compute_mapping_torch
+    t_phase = time.time()
+    t0 = time.time()
+    coords, colors, labels, cams, label_imgs = fusion_scene()
+    fn, protos = feature_maps(label_imgs, DIM)
+    print(f"fusion data: {len(coords)} points, {len(cams)} views "
+          f"z-buffered in {time.time() - t0:.1f}s", flush=True)
+    spec = SPECS["scannet"]
+    W, H = spec.image_dim
+    fuser = MultiViewFuser(spec.image_dim, spec.vis_thres, spec.cut_bound,
+                           use_depth=True, feat_dim=DIM, device=device)
+    host_s = [0.0]
+
+    def timed_fn(i):
+        t = time.perf_counter()
+        fmap = fn(i)
+        host_s[0] += time.perf_counter() - t
+        return fmap
+
+    zero_counts()
+    fuser.fuse_scene(coords, cams[:2], fn)  # staging buffers, first calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bank, ids = fuser.fuse_scene(coords, cams, timed_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    busy, rows = profile_device(
+        lambda: fuser.fuse_scene(coords, cams[:FUSION_PROFILED_VIEWS], fn),
+        "fusion")
+    h2d = sum(r[0] for r in rows if "HtoD" in r[2])
+    d2h = sum(r[0] for r in rows if "DtoH" in r[2])
+    copies = sum(r[0] for r in rows if r[2].startswith("Memcpy"))
+    # each point's sampled labels over the views that see it, on the card
+    dev = torch.device(device)
+    coords_t = torch.as_tensor(coords, dtype=torch.float32, device=dev)
+    labs = torch.as_tensor(label_imgs.reshape(len(cams), -1), device=dev)
+    lo = torch.full((len(coords),), CLASSES + 1, dtype=labs.dtype,
+                    device=dev)
+    hi = torch.full_like(lo, -1)
+    for s in range(0, len(cams), 4):
+        chunk = cams[s:s + 4]
+        v, u, vis = compute_mapping_torch(
+            torch.as_tensor(np.stack([c[0] for c in chunk]), device=dev),
+            torch.as_tensor(np.stack([c[1] for c in chunk]), device=dev),
+            coords_t,
+            torch.as_tensor(np.stack([c[2] for c in chunk]), device=dev),
+            (W, H), spec.vis_thres, spec.cut_bound)
+        lab = torch.gather(labs[s:s + len(chunk)], 1, (v * W + u).long())
+        lo = torch.minimum(lo, torch.where(vis, lab, CLASSES + 1).amin(0))
+        hi = torch.maximum(hi, torch.where(vis, lab, -1).amax(0))
+    lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
+    if not np.array_equal(np.flatnonzero(hi >= 0), ids):
+        raise AssertionError("fusion: point_ids differ from the views' "
+                             "visibility")
+    sel = np.flatnonzero((hi >= 0) & (lo == hi) & (labels != 255))
+    pred = (torch.as_tensor(bank[sel], device=dev)
+            @ torch.as_tensor(protos, device=dev).t()).argmax(1).cpu()
+    share = float((pred.numpy() == labels[sel]).mean())
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"fusion launched conv kernels: {launches}")
+    stats = {
+        "points": len(coords), "views": len(cams), "dim": DIM,
+        "image": [W, H], "visible": int(len(ids)), "wall_ms": wall * 1e3,
+        "feature_fn_host_ms": host_s[0] * 1e3,
+        "profiled_views": FUSION_PROFILED_VIEWS,
+        "profiled_h2d_ms": h2d, "profiled_d2h_ms": d2h,
+        "profiled_device_ms": busy - copies,
+        "views_per_s": len(cams) / wall, "scenes_per_s": 1.0 / wall,
+        "peak_device_bytes": int(peak), "agree_points": int(len(sel)),
+        "argmax_share": share}
+    print(f"fusion (a): {len(coords)} points, {len(cams)} views "
+          f"{W}x{H} {DIM}-d fp16, {len(ids)} points visible; wall "
+          f"{wall * 1e3:.1f} ms ({len(cams) / wall:.2f} views/s, "
+          f"{1 / wall:.4f} scenes/s), of it feature_fn {host_s[0] * 1e3:.1f}"
+          f" ms on the host; profiled {FUSION_PROFILED_VIEWS} views: HtoD "
+          f"{h2d:.3f} ms, DtoH {d2h:.3f} ms, kernels {busy - copies:.3f} "
+          f"ms; peak device memory {peak / 2**20:.1f} MiB; argmax = label "
+          f"at {share:.5f} of {len(sel)} points whose views agree "
+          f"[{card}]", flush=True)
+    if share < FUSION_AGREE:
+        raise AssertionError(f"fusion: argmax = label at {share} < "
+                             f"{FUSION_AGREE}")
+    zero_counts()
+    stats["reference"] = fusion_reference_check(fuser, coords, cams, fn,
+                                                spec, card)
+    stats["cli_nuscenes"] = fusion_cli_check(device, card)
+    stats["eval"] = fusion_eval_check((coords, colors, labels), bank, ids,
+                                      protos, device, card)
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"fusion launched conv kernels: {launches}")
+    stats["phase_s"] = time.time() - t_phase
+    print(f"fusion phase: {stats['phase_s']:.1f}s", flush=True)
+    return stats
+
+
 def seg_config(d3):
     """``configs/scannet/mink.yaml`` (MinkUNet18A, 3 -> 20 classes, batch 8,
     SGD, constant input, bf16), on the synthetic scenes: epochs of
@@ -1631,7 +2107,10 @@ def main():
     for k in launches:
         launches[k] += seg_launches[k]
 
-    # ---- 6. the per-op benchmark on the train batch ----
+    # ---- 6. multi-view fusion at the ScanNet spec, 768-d ----
+    fusion_stats = fusion_phase(card, device)
+
+    # ---- 7. the per-op benchmark on the train batch ----
     t0 = time.time()
     bench = bench_ops(praw.coords, int(praw.num), n_scenes=TRAIN_BATCH,
                       iters=BENCH_ITERS)
@@ -1644,7 +2123,7 @@ def main():
             raise AssertionError(f"{k} was not launched on its main path")
         launches[k] += n
 
-    # ---- 7. report ----
+    # ---- 8. report ----
     kernels = []
     for name, shapes in cases.items():
         main_shape = shapes[0]
@@ -1673,6 +2152,7 @@ def main():
     print(f"train: {json.dumps(train_summary)}; hostmem: "
           f"{json.dumps(hostmem_stats)}", flush=True)
     print(f"seg: {json.dumps(seg_stats)}", flush=True)
+    print(f"fusion: {json.dumps(fusion_stats)}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,7 +64,7 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = proc.stdout.split()  # every module was imported
-    assert len(names) >= 33
+    assert len(names) >= 60
     for mod in ("runtime.distill", "runtime.evaluate", "data.batch",
                 "utils.train_utils", "sparse.edge_conv",
                 "sparse.stencil_conv", "sparse.ops", "convert",
@@ -72,7 +72,10 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                 "scripts.dev_bench_ops", "scripts.dev_pack_bench",
                 "scripts.dev_up_tiles", "scripts.timing",
                 "runtime.train_seg", "runtime.eval_seg", "sparse.native",
-                "utils.hostmem", "utils.flax_msgpack"):
+                "utils.hostmem", "utils.flax_msgpack", "fusion.mapper",
+                "fusion.fuse", "fusion.datasets", "fusion.run_fusion",
+                "utils.ply", "preprocess.point_clouds",
+                "preprocess.scannet_2d"):
         assert "openscene_tpu_torch." + mod in names
 
 
@@ -112,6 +115,31 @@ def test_evaluator_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="not available"):
         ZeroShotEvaluator(Config(feature_type="fusion"),
                           text_features=np.eye(20, 8, dtype=np.float32))
+
+
+def test_fusion_defaults_to_cuda(monkeypatch, tmp_path):
+    """``MultiViewFuser`` and ``fuse_dataset`` raise without CUDA unless
+    given ``device="cpu"``, and on the CPU touch no other device."""
+    from openscene_tpu_torch.fusion.fuse import MultiViewFuser
+    from openscene_tpu_torch.fusion.run_fusion import fuse_dataset
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="not available"):
+        MultiViewFuser((64, 48))
+    with pytest.raises(RuntimeError, match="not available"):
+        fuse_dataset("nuscenes", str(tmp_path / "3d"), str(tmp_path / "2d"),
+                     str(tmp_path / "out"), feat_dir=str(tmp_path))
+    assert not (tmp_path / "out").exists()
+    fuser = MultiViewFuser((64, 48), feat_dim=4, device="cpu")
+    coords = np.random.default_rng(0).random((300, 3)) * [2, 2, 4] - [1, 1, 0]
+    pose = np.eye(4)
+    intr = np.array([[40.0, 0, 32], [0, 40.0, 24], [0, 0, 1]])
+    depth = np.full((48, 64), 3.0, np.float32)
+    maps = np.ones((4, 48, 64), np.float16)
+    bank, ids = fuser.fuse_scene(coords, [(pose, intr, depth)] * 2,
+                                 lambda i: maps * (i + 1))
+    assert len(ids) > 0 and np.allclose(bank[ids], 1.5)
+    assert fuser.device == torch.device("cpu")
+    assert not torch.cuda.is_initialized()
 
 
 def _meta_down_plan():
