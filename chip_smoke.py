@@ -87,7 +87,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    parameters held to the gradients' distance); ``runtime.eval_seg.
    evaluate_seg`` on the 2 val scenes at one repeat, 32/4/4 launches per
    scene: voxels/s and the mIoU of barely trained weights (a smoke value);
-8. drives multi-view fusion (``fusion.fuse.MultiViewFuser`` on ``cuda``)
+8. drives multi-GPU (``parallel/``, one process per GPU): (a) NCCL at world
+   size 1 through torchrun's environment (``maybe_initialize_distributed``):
+   one distill step at ``data_parallel -1`` with the reductions running must
+   equal a step without a process group on the same batch, caps and state,
+   bit for bit; (b) two ranks on ``cuda:0`` over gloo, spawned by
+   ``parallel/launch.spawn``, MinkUNet18A at 768-d, bf16: distill at
+   data=2 (one train scene a rank; 32/4/4 launches forward and backward on
+   each rank; the reduced loss the mean of the ranks' one-process losses on
+   the same batches and caps, within two fp32 eps; the parameters those of
+   Adam on the mean one-process gradient, within two fp32 eps of each
+   parameter; parameters and buffers bit-identical on both ranks), the head
+   sharded at data=1 x model=2 on one 2-scene batch (an SGD step against
+   the one-process step on the same batch: in bf16 through the kernels the
+   loss within 1e-3 relative and 32/4/4 launches each way; in fp32 through
+   the plain versions, as ``tests/test_parallel.py`` holds the JAX package's
+   head sharding, also every tensor's update within 1e-3 of its scale and
+   the head gathered from the shards: bf16's rounding of the split sums
+   moves near-cancelling BatchNorm gradients by more), one
+   ``mink.yaml`` seg step at data=2 (the loss the mean, the histograms the
+   sum of the one-process steps') and ``ZeroShotEvaluator`` in distill mode
+   over the 2 val scenes, one a rank (the results equal the one-process
+   evaluator's, every scene on the one-process caps with bit-equal
+   logits); each rank's step ms and voxels/s beside the one-process step's
+   (two ranks share one card: no scaling numbers) and the phase's wall
+   time;
+9. drives multi-view fusion (``fusion.fuse.MultiViewFuser`` on ``cuda``)
    at the ScanNet spec (320x240, ``SCANNET_INTRINSIC``, vis_thres 0.25,
    cut_bound 10) and OpenSeg width: (a) scene 0 at bench density (186,927
    points) over 100 look_at views inside the room, depth z-buffered from
@@ -106,10 +131,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    scene 0's fused features as a val blob through ``ZeroShotEvaluator`` in
    fusion mode on the card: finite logits, the feature mask on the voxels
    fusion saw.  None of the seven kernels launches;
-9. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
+10. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
    train batch with few iterations: each up conv forward and
    forward+backward by the model's route against the dense route;
-10. prints the eval, train, hostmem, seg and fusion summaries, the card
+11. prints the eval, train, hostmem, seg, dist and fusion summaries, the card
    line, one ``{"kernels": [...]}`` JSON line, and last ``{"ok": true,
    "device": {...}}``.
 
@@ -1890,6 +1915,446 @@ def seg_phase(card, device):
                                "miou": res["miou"]}}
 
 
+DIST_DEVICE = "cuda:0"      # both ranks of (b) on the one card, by name
+DIST_TIMEOUT = 600          # seconds for the two spawned ranks
+DIST_SGD_LR = 1e-2          # the head-sharding check's SGD step
+DIST_CAVEAT = ("two ranks share one card: these are no scaling numbers")
+
+
+def free_port():
+    """A free TCP port on localhost (the world-1 NCCL group's store)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def state_of(model):
+    """Copies of a model's parameters and buffers, by name."""
+    return {n: t.detach().clone() for n, t in
+            list(model.named_parameters()) + list(model.named_buffers())}
+
+
+def dist_nccl_phase(d3, dfeat, card):
+    """(a) NCCL at world size 1, through torchrun's environment: one
+    distill step at ``data_parallel -1`` with the reductions running must
+    equal a step without a process group on the same batch, caps and
+    state, bit for bit (loss, parameters, BatchNorm buffers)."""
+    import torch
+    import torch.distributed as dist
+    from openscene_tpu_torch.device import resolve_device
+    from openscene_tpu_torch.parallel.mesh import (
+        default_backend, maybe_initialize_distributed)
+    from openscene_tpu_torch.runtime.distill import DistillTrainer
+    cfg = train_config(d3, dfeat)
+    ref = DistillTrainer(cfg, allow_pseudo_text=True, device=DIST_DEVICE)
+    if ref.mesh is not None:
+        raise AssertionError("a mesh without a process group")
+    batch = next(ref._epoch_batches())
+    init = state_of(ref.model)
+    loss_ref = float(ref.train_step(batch))
+    after_ref = state_of(ref.model)
+    del ref
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        if not maybe_initialize_distributed(cfg, DIST_DEVICE):
+            raise AssertionError("torchrun's environment made no group")
+        backend = dist.get_backend()
+        tr = DistillTrainer(cfg, allow_pseudo_text=True, device=DIST_DEVICE)
+        if tr.mesh is None or (tr.mesh.data, tr.mesh.model) != (1, 1):
+            raise AssertionError(f"data_parallel -1 on one rank: {tr.mesh}")
+        if any(not torch.equal(v, init[n])
+               for n, v in state_of(tr.model).items()):
+            raise AssertionError("the two trainers start apart")
+        torch.cuda.synchronize()
+        zero_counts()
+        loss = float(tr.train_step(batch))
+        torch.cuda.synchronize()
+        got = read_counts()
+        after = state_of(tr.model)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    if (backend != default_backend(resolve_device(DIST_DEVICE))
+            or got != expected(TRAIN_LAUNCHES)):
+        raise AssertionError(f"(a): backend {backend}, launches {got}")
+    diff = [n for n, v in after_ref.items() if not torch.equal(v, after[n])]
+    print(f"dist (a) NCCL world size 1 ({backend}, torchrun environment): "
+          f"step with the reductions vs without a process group, same "
+          f"batch ({int(batch[0].num)} voxels), caps and state: loss "
+          f"{loss!r} vs {loss_ref!r}, {len(after) - len(diff)}/{len(after)} "
+          f"parameters and buffers bit-equal, launches {got} [{card}]",
+          flush=True)
+    if loss != loss_ref or diff:
+        raise AssertionError(f"(a): not bit-equal: {diff[:5]}")
+    return got
+
+
+def _rank_record(fn):
+    """``(result, device ms)`` of ``fn()`` between two synchronisations."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3
+
+
+def _dist_dp(d3, dfeat, dev):
+    """Distill at data=2, one scene a rank: the one-process step and the
+    data-parallel step from the same state on this rank's batch and caps,
+    and Adam from that state on the ranks' mean one-process gradient."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from openscene_tpu_torch.runtime.distill import DistillTrainer
+    tr = DistillTrainer(train_config(d3, dfeat).copy(data_parallel=2),
+                        allow_pseudo_text=True, device=dev)
+    if (tr.mesh.data, tr.mesh.model, tr.per_dev_batch) != (2, 1, 1):
+        raise AssertionError(f"dp mesh {tr.mesh}")
+    batch = next(tr._epoch_batches())
+    step, model, opt = tr.step_fn, tr.model, tr.optimizer
+    state0 = copy.deepcopy(model.state_dict())
+    opt0 = copy.deepcopy(opt.state_dict())
+
+    def restore():
+        model.load_state_dict(state0)
+        opt.load_state_dict(copy.deepcopy(opt0))
+        step.it = 0
+
+    step.mesh = None
+    tr.train_step(batch)  # the rank's first step warms the card up
+    restore()
+    loss_one, ms_one = _rank_record(lambda: float(tr.train_step(batch)))
+    grads = [p.grad.clone() for p in model.parameters()]
+    restore()
+    step.mesh = tr.mesh
+    zero_counts()
+    loss_dp, ms_dp = _rank_record(lambda: float(tr.train_step(batch)))
+    counts = read_counts()
+    same = _same_on_ranks(state_of(model).values())
+    params_dp = [p.detach().clone() for p in model.parameters()]
+    # the reference: Adam on the mean of the ranks' one-process gradients
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    flat /= 2
+    restore()
+    at = 0
+    for p in model.parameters():
+        p.grad = flat[at:at + p.numel()].view_as(p).clone()
+        at += p.numel()
+    for group in opt.param_groups:
+        group["lr"] = tr.schedule(0)
+    opt.step()
+    err = max((a - p.detach()).abs().max().item()
+              for a, p in zip(params_dp, model.parameters()))
+    bound = max((2 * torch.finfo(torch.float32).eps * p.detach().abs()
+                 ).max().item() for p in model.parameters())
+    losses = [None, None]
+    dist.all_gather_object(losses, loss_one)
+    return dict(loss_dp=loss_dp, loss_one=loss_one, losses_one=losses,
+                ms_one=ms_one, ms_dp=ms_dp, voxels=int(batch[0].num),
+                caps=list(batch[1]), counts=counts, param_err=err,
+                param_bound=bound, same=same)
+
+
+def _same_on_ranks(tensors):
+    """Whether every rank holds bit-identical ``tensors`` (parameters and
+    buffers)."""
+    import torch
+    import torch.distributed as dist
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    same = torch.tensor([int(torch.equal(flat, ref))], device=flat.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def _dist_head(d3, dfeat, dev):
+    """Head sharding at data=1 x model=2 on one 2-scene batch: an SGD step
+    of the sharded head (the trainer's own device-geometry path) against
+    the one-process step on the same batch, caps and weights, in bf16
+    through the kernels and in fp32 through the plain versions."""
+    import contextlib
+    import copy
+    import torch
+    from openscene_tpu_torch.models.sparse_unet import MinkUNet
+    from openscene_tpu_torch.parallel.mesh import gather_head
+    from openscene_tpu_torch.runtime.distill import (DistillTrainer,
+                                                     RawTrainStep,
+                                                     make_train_step)
+    cfg = train_config(d3, dfeat).copy(data_parallel=1, model_parallel=2)
+    tr = DistillTrainer(cfg, allow_pseudo_text=True, device=dev)
+    if (tr.mesh.data, tr.mesh.model) != (1, 2) or \
+            tr.model.final.shape[-1] != DIM // 2:
+        raise AssertionError(f"head mesh {tr.mesh}")
+    raw, caps = next(tr._epoch_batches())
+    full = MinkUNet(3, DIM, ARCH, generator=torch.Generator().manual_seed(
+        cfg.manual_seed)).to(dev)
+    before = state_of(full)
+    if not torch.equal(gather_head(tr.model.final.detach(), tr.mesh),
+                       before["final"]):
+        raise AssertionError("the shards are not the one-process head")
+    full0 = copy.deepcopy(full.state_dict())
+    sharded0 = copy.deepcopy(tr.model.state_dict())
+
+    def sgd_step(model, mesh, ccfg):
+        sgd = torch.optim.SGD(model.parameters(), lr=DIST_SGD_LR)
+        return make_train_step(ccfg, model, sgd, lambda it: DIST_SGD_LR, dev,
+                               mesh=mesh)
+
+    out = {}
+    for name, ccfg, ctx in (
+            ("bf16", cfg, contextlib.nullcontext),
+            ("fp32", cfg.copy(compute_dtype="float32"), plain_path)):
+        tr.model.load_state_dict(sharded0)
+        full.load_state_dict(full0)
+        with ctx():
+            tr.step_fn, tr._dg_steps = sgd_step(tr.model, tr.mesh, ccfg), {}
+            zero_counts()
+            loss_sh, ms_sh = _rank_record(
+                lambda: float(tr.train_step((raw, caps))))
+            counts = read_counts()
+            loss_one, ms_one = _rank_record(lambda: float(RawTrainStep(
+                sgd_step(full, None, ccfg), caps,
+                n_scenes=tr.per_dev_batch)(raw)[0]))
+        got = state_of(tr.model)
+        got["final"] = gather_head(got["final"], tr.mesh)
+        ref = state_of(full)
+        worst, worst_name = 0.0, ""
+        for n, _ in full.named_parameters():
+            u, u_ref = got[n] - before[n], ref[n] - before[n]
+            ulps = 2 * torch.finfo(torch.float32).eps * ref[n].abs()
+            r = (((u - u_ref).abs() - ulps).clamp_min(0).max()
+                 / u_ref.abs().max().clamp_min(1e-30)).item()
+            if r > worst:
+                worst, worst_name = r, n
+        head = ((got["final"] - ref["final"]).abs().max()
+                / (ref["final"] - before["final"]).abs().max()).item()
+        out[name] = dict(loss_sharded=loss_sh, loss_one=loss_one,
+                         ms_sharded=ms_sh, ms_one=ms_one, counts=counts,
+                         update_err=worst, update_err_param=worst_name,
+                         head_update_err=head,
+                         same=_same_on_ranks(got.values()))
+    out["voxels"] = int(raw.num)
+    return out
+
+
+def _dist_seg(seg_d3, dev):
+    """One mink.yaml seg step at data=2, one scene a rank, against the
+    one-process step on the same batch, caps and state."""
+    import copy
+    import torch.distributed as dist
+    from openscene_tpu_torch.runtime.train_seg import SegTrainer
+    cfg = seg_config(seg_d3).copy(batch_size=2, data_parallel=2, workers=1)
+    tr = SegTrainer(cfg, device=dev)
+    batch = next(tr._epoch_batches())
+    step, model, opt = tr.step_fn, tr.model, tr.optimizer
+    state0 = copy.deepcopy(model.state_dict())
+    opt0 = copy.deepcopy(opt.state_dict())
+    step.mesh = None
+    one, ms_one = _rank_record(lambda: [
+        t.cpu().numpy() for t in tr.train_step(batch)])
+    model.load_state_dict(state0)
+    opt.load_state_dict(opt0)
+    step.it, step.mesh = 0, tr.mesh
+    zero_counts()
+    dp, ms_dp = _rank_record(lambda: [
+        t.cpu().numpy() for t in tr.train_step(batch)])
+    counts = read_counts()
+    ones = [None, None]
+    dist.all_gather_object(ones, one)
+    return dict(loss_dp=float(dp[0]), hist_dp=[h.tolist() for h in dp[1:]],
+                losses_one=[float(o[0]) for o in ones],
+                hist_sum=[(ones[0][k] + ones[1][k]).tolist()
+                          for k in (1, 2, 3)],
+                ms_one=ms_one, ms_dp=ms_dp, voxels=int(batch[0].num),
+                counts=counts, same=_same_on_ranks(state_of(model).values()))
+
+
+def eval_scene_logits(ev):
+    """Run ``ev``; returns (results, {scene: logits}, {scene: caps})."""
+    logits, caps, built = {}, {}, []
+    scene_outputs, build = ev._scene_outputs, ev.geometry.build
+
+    def record_build(coords, num, c):
+        built.append(tuple(c))
+        return build(coords, num, c)
+
+    def recording(rounds, step):
+        for i, sample, out, n in scene_outputs(rounds, step):
+            if sample is not None:
+                logits[i] = out[0][:n].float().cpu().numpy()
+                caps[i] = built[-1]
+            yield i, sample, out, n
+
+    ev.geometry.build, ev._scene_outputs = record_build, recording
+    return ev.run(), logits, caps
+
+
+def _dist_eval(d3, dfeat, dev):
+    """ZeroShotEvaluator in distill mode over the val scenes, one a rank."""
+    from openscene_tpu_torch.runtime.evaluate import (ZeroShotEvaluator,
+                                                      load_model_for_eval)
+    cfg = eval_config(d3, dfeat, "distill").copy(data_parallel=2,
+                                                 test_workers=1)
+    ev = ZeroShotEvaluator(cfg, load_model_for_eval(cfg, dev),
+                           allow_pseudo_text=True, device=dev)
+    zero_counts()
+    (res, logits, caps), ms = _rank_record(lambda: eval_scene_logits(ev))
+    return dict(results=res, logits=logits, caps=caps, ms=ms,
+                counts=read_counts(), overflows=ev.geometry.overflows)
+
+
+def _dist_rank(d3, dfeat, seg_d3):
+    """One rank of the two on ``cuda:0`` (gloo): every part, in the same
+    order on both; rank 0 returns both ranks' records."""
+    import torch
+    import torch.distributed as dist
+    dev = DIST_DEVICE
+    out = {}
+    for name, fn in (("dp", lambda: _dist_dp(d3, dfeat, dev)),
+                     ("head", lambda: _dist_head(d3, dfeat, dev)),
+                     ("seg", lambda: _dist_seg(seg_d3, dev)),
+                     ("eval", lambda: _dist_eval(d3, dfeat, dev))):
+        out[name] = fn()
+        torch.cuda.empty_cache()
+    parts = [None, None]
+    dist.all_gather_object(parts, out)
+    return parts
+
+
+def dist_phase(d3, dfeat, seg_d3, card):
+    """The distributed phase: (a) NCCL at world size 1 in this process; (b)
+    two ranks spawned on ``cuda:0`` over gloo (module docstring).  Returns
+    rank 0's launch counts of its data-parallel step and a summary."""
+    import numpy as np
+    import torch
+    from openscene_tpu_torch.parallel.launch import spawn
+    from openscene_tpu_torch.runtime.evaluate import (ZeroShotEvaluator,
+                                                      load_model_for_eval)
+    t_phase = time.time()
+    nccl_counts = dist_nccl_phase(d3, dfeat, card)
+    # the one-process evaluator's per-scene logits, before the ranks
+    cfg = eval_config(d3, dfeat, "distill").copy(test_workers=1)
+    res_one, logits_one, caps_one = eval_scene_logits(ZeroShotEvaluator(
+        cfg, load_model_for_eval(cfg, DIST_DEVICE), allow_pseudo_text=True,
+        device=DIST_DEVICE))
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = spawn(_dist_rank, 2, d3, dfeat, seg_d3, backend="gloo",
+                  device=DIST_DEVICE, timeout=DIST_TIMEOUT)
+    t_ranks = time.time() - t0
+    want = expected(TRAIN_LAUNCHES)
+    summary = {"nccl_world1_launches": nccl_counts, "ranks_s": t_ranks}
+    # distill data parallel
+    dp = [r["dp"] for r in ranks]
+    mean = sum(dp[0]["losses_one"]) / 2
+    loss_err = abs(dp[0]["loss_dp"] - mean)
+    loss_bound = 2 * float(np.finfo(np.float32).eps) * abs(mean)
+    for r, d in enumerate(dp):
+        print(f"dist (b) data parallel rank {r}: {d['voxels']} voxels "
+              f"(caps {d['caps']}); one-process step {d['ms_one']:.1f} ms "
+              f"({d['voxels'] / d['ms_one'] * 1e3:.1f} voxels/s), "
+              f"data-parallel step {d['ms_dp']:.1f} ms "
+              f"({d['voxels'] / d['ms_dp'] * 1e3:.1f} voxels/s); launches "
+              f"{d['counts']} ({DIST_CAVEAT}) [{card}]", flush=True)
+    print(f"dist (b) data parallel: reduced loss {dp[0]['loss_dp']!r}, mean "
+          f"of the one-process losses {mean!r} (|diff| {loss_err:.3e}, bound "
+          f"{loss_bound:.3e}); parameters against Adam on the mean "
+          f"one-process gradient: max |diff| {dp[0]['param_err']:.3e} "
+          f"(rank 1 {dp[1]['param_err']:.3e}), bound (2 fp32 eps of the "
+          f"parameter) {dp[0]['param_bound']:.3e}; identical on both ranks "
+          f"{dp[0]['same'] and dp[1]['same']}", flush=True)
+    if not (all(d["counts"] == want for d in dp)
+            and dp[0]["loss_dp"] == dp[1]["loss_dp"]
+            and loss_err <= loss_bound
+            and all(d["param_err"] <= d["param_bound"] for d in dp)
+            and dp[0]["same"] and dp[1]["same"]):
+        raise AssertionError("(b) data parallel: a check failed")
+    # head sharding: bf16 through the kernels (loss and launches), fp32
+    # through the plain versions (every update, as tests/test_parallel.py)
+    hd = [r["head"] for r in ranks]
+    for name in ("bf16", "fp32"):
+        h = hd[0][name]
+        rel = abs(h["loss_sharded"] - h["loss_one"]) / abs(h["loss_one"])
+        h["loss_rel"] = rel
+        print(f"dist (b) head sharding data=1 x model=2, {name} "
+              f"{'kernels' if name == 'bf16' else 'plain versions'}, "
+              f"{hd[0]['voxels']} voxels, SGD {DIST_SGD_LR}: loss "
+              f"{h['loss_sharded']!r} vs one-process {h['loss_one']!r} (rel "
+              f"{rel:.3e}, limit 1e-3); worst update error "
+              f"{h['update_err']:.3e} of its scale ({h['update_err_param']}"
+              f"{', limit 1e-3' if name == 'fp32' else ''}), gathered head "
+              f"{h['head_update_err']:.3e}; sharded step "
+              f"{h['ms_sharded']:.1f} ms, one-process {h['ms_one']:.1f} ms "
+              f"({DIST_CAVEAT}); launches {h['counts']} [{card}]",
+              flush=True)
+    b16 = [d["bf16"] for d in hd]
+    f32 = [d["fp32"] for d in hd]
+    if not (hd[0]["bf16"]["loss_rel"] <= 1e-3
+            and hd[0]["fp32"]["loss_rel"] <= 1e-3
+            and all(d["counts"] == want and d["same"] for d in b16)
+            and all(d["update_err"] <= 1e-3 and d["head_update_err"] <= 1e-3
+                    and not any(d["counts"].values()) and d["same"]
+                    for d in f32)
+            and all(a["loss_sharded"] == b["loss_sharded"]
+                    for a, b in (b16, f32))):
+        raise AssertionError("(b) head sharding: a check failed")
+    # seg
+    sg = [r["seg"] for r in ranks]
+    s = sg[0]
+    smean = sum(s["losses_one"]) / 2
+    for r, d in enumerate(sg):
+        print(f"dist (b) seg rank {r}: {d['voxels']} voxels; one-process "
+              f"step {d['ms_one']:.1f} ms, data-parallel step "
+              f"{d['ms_dp']:.1f} ms ({DIST_CAVEAT}); launches {d['counts']} "
+              f"[{card}]", flush=True)
+    print(f"dist (b) seg data=2: loss {s['loss_dp']!r} vs mean "
+          f"{smean!r}; histograms equal the sum of the one-process ones "
+          f"{s['hist_dp'] == s['hist_sum']}", flush=True)
+    if not (abs(s["loss_dp"] - smean) <= 2 * float(
+            np.finfo(np.float32).eps) * abs(smean)
+            and s["hist_dp"] == s["hist_sum"] == sg[1]["hist_dp"]
+            and all(d["counts"] == want and d["same"] for d in sg)):
+        raise AssertionError("(b) seg: a check failed")
+    # eval
+    ev = [r["eval"] for r in ranks]
+    same_caps, bit_equal, worst = 0, 0, 0.0
+    for d in ev:
+        for i, lg in d["logits"].items():
+            if d["caps"][i] == caps_one[i]:
+                same_caps += 1
+                bit_equal += int(np.array_equal(lg, logits_one[i]))
+            worst = max(worst, float(np.abs(lg - logits_one[i]).max()))
+    n_scenes = sum(len(d["logits"]) for d in ev)
+    print(f"dist (b) eval distill, {n_scenes} scenes over 2 ranks: mIoU "
+          f"{ev[0]['results']['miou']!r} vs one-process "
+          f"{res_one['miou']!r}; {same_caps}/{n_scenes} scenes on the "
+          f"one-process caps, of them {bit_equal} with bit-equal logits "
+          f"(max |diff| over all {worst:.3e}); rank ms "
+          f"{[round(d['ms'], 1) for d in ev]} ({DIST_CAVEAT}) [{card}]",
+          flush=True)
+    if not (ev[0]["results"] == ev[1]["results"] == res_one
+            and n_scenes == len(logits_one) == same_caps == bit_equal
+            and not any(d["overflows"] for d in ev)):
+        raise AssertionError("(b) eval: a check failed")
+    dt = time.time() - t_phase
+    print(f"dist phase: {dt:.1f}s wall ((a), the one-process eval, and "
+          f"{t_ranks:.1f}s of the two ranks) [{card}]", flush=True)
+    summary.update(seconds=dt, dp=dp, head=hd, seg=sg,
+                   eval=[{"ms": d["ms"], "miou": d["results"]["miou"]}
+                         for d in ev])
+    for d in dp:
+        d.pop("losses_one")
+    return dp[0]["counts"], summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2107,10 +2572,17 @@ def main():
     for k in launches:
         launches[k] += seg_launches[k]
 
-    # ---- 6. multi-view fusion at the ScanNet spec, 768-d ----
+    # ---- 6. multi-GPU: NCCL at world size 1, two ranks over gloo ----
+    dist_launches, dist_stats = dist_phase(
+        d3, dfeat, os.path.join(HERE, "build", "smoke_seg_data",
+                                "scannet_3d"), card)
+    for k in launches:  # rank 0's data-parallel step
+        launches[k] += dist_launches[k]
+
+    # ---- 7. multi-view fusion at the ScanNet spec, 768-d ----
     fusion_stats = fusion_phase(card, device)
 
-    # ---- 7. the per-op benchmark on the train batch ----
+    # ---- 8. the per-op benchmark on the train batch ----
     t0 = time.time()
     bench = bench_ops(praw.coords, int(praw.num), n_scenes=TRAIN_BATCH,
                       iters=BENCH_ITERS)
@@ -2123,7 +2595,7 @@ def main():
             raise AssertionError(f"{k} was not launched on its main path")
         launches[k] += n
 
-    # ---- 8. report ----
+    # ---- 9. report ----
     kernels = []
     for name, shapes in cases.items():
         main_shape = shapes[0]
@@ -2136,6 +2608,7 @@ def main():
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
+            "dist_rank_launches": dist_launches[name],
             "shapes": shapes}
         if name in ("stencil_conv_fwd", "down_conv_fwd", "up_conv_fwd"):
             entry["launches_per_forward"] = eval_launches[name] / forwards
@@ -2152,6 +2625,7 @@ def main():
     print(f"train: {json.dumps(train_summary)}; hostmem: "
           f"{json.dumps(hostmem_stats)}", flush=True)
     print(f"seg: {json.dumps(seg_stats)}", flush=True)
+    print(f"dist: {json.dumps(dist_stats)}", flush=True)
     print(f"fusion: {json.dumps(fusion_stats)}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

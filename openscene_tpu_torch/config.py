@@ -79,15 +79,20 @@ class Config:
     labelset: str = ""  # override labelset name (else derived from data_root)
     map_nuscenes_details: bool = False
 
-    # ---- Distributed (accepted for config compatibility; the port's
-    # evaluator runs one device and raises on data_parallel > 1) ----
+    # ---- Distributed: one process per GPU (parallel/mesh.py) ----
+    # data-axis ranks; -1: every rank of the process group (the trainers
+    # cap it at batch_size); > 1 without a process group: the entry
+    # points' main starts that many local processes
     data_parallel: int = -1
+    # ranks that split the distill head's D (must divide it); distill only
     model_parallel: int = 1
     dist_url: str = ""  # accepted and ignored (reference compat)
     dist_backend: str = ""  # accepted and ignored (reference compat)
     multiprocessing_distributed: bool = False  # accepted and ignored
-    world_size: int = 1
-    rank: int = 0
+    world_size: int = 1  # accepted and ignored: num_processes or torchrun
+    rank: int = 0  # accepted and ignored: process_id or torchrun
+    # multi-host without torchrun: "host:port" of rank 0 (a tcp:// process
+    # group), the number of processes (GPUs) and this process's rank
     coordinator_address: str = ""
     num_processes: int = 0
     process_id: int = -1

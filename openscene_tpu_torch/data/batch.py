@@ -188,11 +188,22 @@ def merge_caps(coords: np.ndarray, caps: Optional[GeometryCaps]
     hold the exact level counts of ``coords`` (five ``np.unique`` passes):
     only the levels whose count no longer fits grow, to the bucket of that
     count."""
-    counts = level_counts(coords)
+    return merge_counts(level_counts(coords), caps)
+
+
+def merge_counts(counts: Sequence[int], caps: Optional[GeometryCaps]
+                 ) -> GeometryCaps:
+    """:func:`merge_caps` on the level counts themselves."""
     prev = caps.fixed if caps is not None else (0,) * len(counts)
     fixed = tuple(p if c < p else max(p, _bucket(c))
                   for p, c in zip(prev, counts))
     return GeometryCaps(cap0=fixed[0], fixed=fixed)
+
+
+def eval_level_counts(samples: Sequence[SceneSample]):
+    """The level counts of an eval batch of ``samples`` (no shift), which
+    its ``assemble_raw_*`` merges into the running caps."""
+    return level_counts(_concat_sort(samples, None)[0])
 
 
 def assemble_eval_batch(samples: Sequence[SceneSample], dim: int,

@@ -35,7 +35,9 @@ import torch
 from torch import nn
 
 from ..sparse.edge_conv import DownConv, UpConv
-from ..sparse.ops import masked_batch_norm, matmul_f32, relu, valid_mask
+from ..parallel.mesh import grad_sum
+from ..sparse.ops import (_acc_dtype, masked_batch_norm, matmul_f32, relu,
+                          valid_mask)
 from ..sparse.stencil_conv import StencilConv
 from ..sparse.types import ConvPlan, DownPlan, UNetGeometry
 
@@ -264,4 +266,13 @@ class MinkUNet(nn.Module):
 
         if return_prehead:
             return out
-        return _conv1x1(out, self.final).float()
+        return self.head(out)
+
+    def head(self, x, grad_group=None):
+        """The 1x1 head on the (cap0, C) pre-head activations: (cap0, D)
+        fp32, or this rank's columns when ``final`` holds a model group's
+        column shard.  ``grad_group``: the input's gradient is summed over
+        that group, in the fp32 of the product (``parallel/mesh.py``)."""
+        xa = grad_sum(x.to(_acc_dtype(x.dtype)), grad_group)
+        w = self.final[0].to(x.dtype)
+        return torch.matmul(xa, w.to(xa.dtype)).to(x.dtype).float()

@@ -25,6 +25,19 @@ overflowed plans.  Without it every scene is planned on the host.  The
 fused features go to the device only in the modes that read them (fusion,
 ensemble).
 
+Multi-GPU (``data_parallel``, one process per GPU, ``parallel/mesh.py``):
+rank ``r`` of ``W`` runs scenes ``r, r + W, ...`` of every repeat, in rounds
+of ``W`` scenes, and writes its scenes' feature files; rank 0 gathers, round
+by round, what the metric reads of every scene (point logits, feature mask,
+labels; never the (N, 768) features) and runs the protocol unchanged, and
+every rank returns its results.  With device geometry the ranks share their
+scenes' level counts in each round and grow the running caps in scene
+order, so every scene runs on the caps a one-GPU run gives it and its
+logits on the card are those of the one-GPU run (the kernels' tiles follow
+the caps).  Launch with torchrun, the config's ``coordinator_address``/
+``num_processes``/``process_id``, or ``main`` alone, which starts
+``data_parallel`` local processes.
+
 Run: ``python -m openscene_tpu_torch.runtime.evaluate --config <yaml>
 [--device cuda|cpu] [key value]*``
 """
@@ -42,12 +55,17 @@ import torch
 
 from .. import metrics
 from ..config import Config, dataset_name_from_root, load_cli
-from ..data.batch import assemble_eval_batch, assemble_raw_eval_batch
+from ..data.batch import (assemble_eval_batch, assemble_raw_eval_batch,
+                          eval_level_counts, merge_counts)
 from ..data.loaders import FusedFeatureLoader
+from ..data.prefetch import Prefetcher
 from ..device import device_geometry_on, resolve_device
 from ..labels import NO_FEATURE_ID, labelset_and_palette
 from ..models.disnet import build_disnet, output_dim
 from ..models.sparse_unet import MinkUNet
+from ..parallel import launch
+from ..parallel.mesh import (Mesh, all_gather_rows, broadcast_from_main,
+                             gather_to_main, mesh_for)
 from ..sparse.geometry import geometry_to_device
 from ..sparse.geometry_device import build_geometry_parts, with_host_counts
 from ..sparse.types import UNetGeometry
@@ -130,13 +148,35 @@ class SceneGeometry:
     on the running level caps (which only grow) and builds its plans on the
     device by the occupancy grid (``cfg.grid_dims0``), the stem as
     occupancy unless the input is colour, as the raw train step does.
-    ``on`` is ``cfg.device_geometry`` resolved for ``device``."""
+    ``on`` is ``cfg.device_geometry`` resolved for ``device``; ``mesh``:
+    the multi-GPU run whose data ranks share the running caps
+    (:meth:`share_caps`)."""
 
-    def __init__(self, cfg: Config, device: torch.device):
-        self.cfg, self.device = cfg, device
+    def __init__(self, cfg: Config, device: torch.device,
+                 mesh: Optional[Mesh] = None):
+        self.cfg, self.device, self.mesh = cfg, device, mesh
         self.on = device_geometry_on(cfg.device_geometry, device)
         self.caps = None       # the running level caps
         self.overflows = 0     # scenes planned on the host after overflow
+
+    def share_caps(self, sample):
+        """Every data rank calls it once a round with its scene (None when
+        it has none): the round's scenes' level counts are merged into the
+        running caps in scene order, as one process merges them scene by
+        scene.  Returns the caps after this rank's scene, None without a
+        mesh, device geometry or scene (then :meth:`device_batch` grows the
+        running caps itself)."""
+        if self.mesh is None or not self.on:
+            return None
+        counts = (eval_level_counts([sample]) if sample is not None
+                  else [-1] * 5)
+        mine = None
+        for r, row in enumerate(all_gather_rows(counts, self.mesh)):
+            if row[0] >= 0:
+                self.caps = merge_counts(row, self.caps)
+                if r == self.mesh.data_index:
+                    mine = self.caps
+        return mine
 
     def build(self, coords: np.ndarray, num, caps):
         """``(geometry with host level counts, overflow)`` of a padded
@@ -148,33 +188,58 @@ class SceneGeometry:
             n_scenes=1, grid_dims0=tuple(self.cfg.grid_dims0) or None)
         return with_host_counts(geo, overflow)
 
-    def device_batch(self, assemble_raw):
+    def device_batch(self, assemble_raw, caps=None):
         """``(raw batch, geometry on the device)`` of one scene, where
-        ``assemble_raw(caps) -> (raw batch, caps)``; None when device
-        geometry is off, or when it overflowed (logged and counted: the
-        caller plans the scene on the host)."""
+        ``assemble_raw(caps) -> (raw batch, caps)``, on ``caps`` (from
+        :meth:`share_caps`) or else the running caps grown to hold the
+        scene; None when device geometry is off, or when it overflowed
+        (logged and counted: the caller plans the scene on the host)."""
         if not self.on:
             return None
-        raw, self.caps = assemble_raw(self.caps)
-        geo, overflow = self.build(raw.coords, raw.num, self.caps.fixed)
+        if caps is None:
+            raw, self.caps = assemble_raw(self.caps)
+            caps = self.caps
+        else:
+            raw, _ = assemble_raw(caps)
+        geo, overflow = self.build(raw.coords, raw.num, caps.fixed)
         if not overflow:
             return raw, geo
         self.overflows += 1
         log.warning("device geometry overflowed (caps %s, grid_dims0 %s); "
-                    "planning the scene on the host", self.caps.fixed,
+                    "planning the scene on the host", caps.fixed,
                     tuple(self.cfg.grid_dims0) or "default")
         return None
+
+
+def rank_scene_rounds(get, n_scenes: int, mesh: Optional[Mesh],
+                      geometry: Optional[SceneGeometry] = None,
+                      workers: int = 1):
+    """This rank's scenes of a split: ``(scene index, sample, caps)`` for
+    each round of ``W`` scenes (one a data rank; ``sample`` None where the
+    last round has none for this rank), loaded by ``get(i)`` ``workers``
+    threads ahead.  ``caps``: :meth:`SceneGeometry.share_caps` of the round
+    (``geometry`` None: nothing to share).  On one process (``mesh`` None):
+    every scene in order."""
+    n_dp, r = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
+    mine = range(r, n_scenes, n_dp)
+    samples = iter(Prefetcher(get, mine, workers=workers) if workers > 1
+                   else (get(i) for i in mine))
+    for g in range(0, n_scenes, n_dp):
+        i = g + r
+        sample = next(samples) if i < n_scenes else None
+        caps = None if geometry is None else geometry.share_caps(sample)
+        yield i, sample, caps
 
 
 class ZeroShotEvaluator:
     def __init__(self, cfg: Config, model: Optional[MinkUNet] = None,
                  text_features: Optional[np.ndarray] = None,
                  allow_pseudo_text: bool = False, device=None):
-        if cfg.data_parallel > 1:
-            raise NotImplementedError(
-                "multi-device eval (data_parallel > 1) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh_for("evaluate", cfg.data_parallel,
+                             device=self.device)
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.dim = (int(np.asarray(text_features).shape[1])
                     if text_features is not None
                     else output_dim(cfg.feature_2d_extractor))
@@ -197,7 +262,7 @@ class ZeroShotEvaluator:
         if self.mode != "fusion" and model is None:
             raise ValueError(f"feature_type={self.mode!r} needs a model")
         self.model = None if model is None else model.to(self.device).eval()
-        self.geometry = SceneGeometry(cfg, self.device)
+        self.geometry = SceneGeometry(cfg, self.device, self.mesh)
         if cfg.vis_input or cfg.vis_pred or cfg.vis_gt:
             raise NotImplementedError(
                 "vis_input/vis_pred/vis_gt exports are not ported yet")
@@ -230,33 +295,19 @@ class ZeroShotEvaluator:
                                   return_features=True)
             os.makedirs(save_features_to, exist_ok=True)
 
+        need_model = self.mode != "fusion"
         for rep in range(cfg.test_repeats):
             if rep > 0:
                 loader.reseed(int(rng.integers(10000)))
             preds, gts, masks = [], [], []
             t0 = time.time()
-            if cfg.test_workers > 1:  # host voxelize/assemble ahead of device
-                from ..data.prefetch import Prefetcher
-                samples = Prefetcher(loader.get, range(n_scenes),
-                                     workers=cfg.test_workers)
-            else:
-                samples = (loader.get(i) for i in range(n_scenes))
-            for i, sample, out, n_pts in self._scene_outputs(samples, step):
-                logits = out[0][:n_pts].float().cpu().numpy()
-                pmask = out[1][:n_pts].cpu().numpy() > 0.5
-                label = np.asarray(sample.labels[:n_pts])
-                if save_features_to and rep == 0:
-                    # per-point FEATURE dump (reference run/evaluate.py:
-                    # 302-331), saved before any nuScenes point subsetting,
-                    # named by scene (run/evaluate.py:329)
-                    scene_name = os.path.basename(
-                        str(loader.data_paths[i])).rsplit(".", 1)[0]
-                    feat_dtype = (np.float32 if self.mode == "distill"
-                                  else np.float16)
-                    np.save(join(save_features_to,
-                                 f"{scene_name}_openscene_feat_{self.mode}.npy"),
-                            out[2][:n_pts].float().cpu().numpy()
-                            .astype(feat_dtype))
+            # host voxelize/assemble test_workers threads ahead of the device
+            rounds = rank_scene_rounds(
+                loader.get, n_scenes, self.mesh,
+                self.geometry if need_model else None, cfg.test_workers)
+            rows = self._host_rows(self._scene_outputs(rounds, step), loader,
+                                   save_features_to if rep == 0 else "")
+            for i, logits, pmask, label in rows:
                 if is_nuscenes:  # evaluation points are a labeled subset
                     keep = label != 255
                     label, logits, pmask = label[keep], logits[keep], pmask[keep]
@@ -270,6 +321,8 @@ class ZeroShotEvaluator:
                 # no-GT datasets (Replica): feature export only
                 results["miou"] = float("nan")
                 return results
+            if not self.is_main:  # rank 0 holds every scene's rows
+                continue
 
             gt = np.concatenate(gts)
             mask = np.concatenate(masks)
@@ -290,26 +343,69 @@ class ZeroShotEvaluator:
             else:
                 results["accumulated"] = cur
                 log.info("mIoU=%.4f", cur)
-        results["miou"] = results["accumulated"]
+        if self.is_main:
+            results["miou"] = results["accumulated"]
+        if self.mesh is not None:
+            results = broadcast_from_main(results, self.mesh)
         return results
 
-    def _scene_outputs(self, samples, step):
+    def _scene_outputs(self, rounds, step):
         """Yield (scene_idx, sample, step_outputs, n_points), one scene at a
-        time on the evaluator's device."""
-        for i, sample in enumerate(samples):
-            out, n_points = self.scene(sample, step)
+        time on the evaluator's device, for the scenes of ``rounds``
+        (:func:`rank_scene_rounds`); a round without a scene for this rank
+        yields ``(i, None, None, 0)``."""
+        for i, sample, caps in rounds:
+            if sample is None:
+                yield i, None, None, 0
+                continue
+            out, n_points = self.scene(sample, step, caps)
             yield i, sample, out, n_points
 
-    def scene(self, sample, step):
+    def _host_rows(self, outputs, loader, save_features_to: str = ""):
+        """``(scene_idx, point logits fp32, feature mask, labels)`` as host
+        arrays, in scene order, of :meth:`_scene_outputs`' ``outputs``;
+        writes the scenes' feature files to ``save_features_to``.  Under a
+        mesh rank 0 gets every rank's rows, gathered round by round, and
+        the other ranks none."""
+        for i, sample, out, n_pts in outputs:
+            row = None
+            if sample is not None:
+                logits = out[0][:n_pts].float().cpu().numpy()
+                pmask = out[1][:n_pts].cpu().numpy() > 0.5
+                label = np.asarray(sample.labels[:n_pts])
+                if save_features_to:
+                    # per-point FEATURE dump (reference run/evaluate.py:
+                    # 302-331), saved before any nuScenes point subsetting,
+                    # named by scene (run/evaluate.py:329)
+                    scene_name = os.path.basename(
+                        str(loader.data_paths[i])).rsplit(".", 1)[0]
+                    feat_dtype = (np.float32 if self.mode == "distill"
+                                  else np.float16)
+                    np.save(join(save_features_to,
+                                 f"{scene_name}_openscene_feat_{self.mode}.npy"),
+                            out[2][:n_pts].float().cpu().numpy()
+                            .astype(feat_dtype))
+                row = (i, logits, pmask, label)
+            if self.mesh is None:
+                yield row
+                continue
+            for r in gather_to_main(row, self.mesh) or ():
+                if r is not None:
+                    yield r
+
+    def scene(self, sample, step, caps=None):
         """``(step outputs, n_points)`` of one scene: its geometry built on
         the device under ``device_geometry`` (fusion builds none), else on
-        the host, and on the host when the device's overflows."""
+        the host, and on the host when the device's overflows; ``caps``:
+        the level caps shared over a round (:meth:`SceneGeometry.
+        share_caps`), else the running caps."""
         need_model = self.mode != "fusion"
         need_fused = self.mode != "distill"
         if need_model:
             hit = self.geometry.device_batch(
                 lambda caps: assemble_raw_eval_batch(
-                    [sample], self.dim, caps=caps, need_fused=need_fused))
+                    [sample], self.dim, caps=caps, need_fused=need_fused),
+                caps)
             if hit is not None:
                 raw, geo = hit
                 return step(self.model, self.text, raw, geo), raw.num_points
@@ -382,14 +478,19 @@ def load_weights(model: MinkUNet, cfg: Config) -> None:
              order)
 
 
-def main(argv=None):
-    cfg, device = load_cli(argv if argv is not None else sys.argv[1:])
+def evaluate(cfg: Config, device=None) -> Dict[str, float]:
+    """One rank's evaluation (``main``'s work on every rank)."""
     model = load_model_for_eval(cfg, device)
     ev = ZeroShotEvaluator(cfg, model, device=device)
     out_dir = cfg.save_folder if cfg.save_feature_as_numpy else ""
     results = ev.run(save_features_to=out_dir)
     log.info("final mIoU: %.4f", results["miou"])
     return results
+
+
+def main(argv=None):
+    cfg, device = load_cli(argv if argv is not None else sys.argv[1:])
+    return launch.run(evaluate, cfg, device)
 
 
 if __name__ == "__main__":

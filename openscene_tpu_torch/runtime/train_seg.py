@@ -14,8 +14,16 @@ builds every kernel map on the device, as the distillation trainer does
 overflows is built again on the host and trained through the host step.
 The IoU histograms are computed on the device.  Resume takes the port's own
 checkpoints and the JAX package's (flax msgpack; optax's SGD trace becomes
-torch's ``momentum_buffer``).  Multi-device training is not ported yet
-(ROADMAP).
+torch's ``momentum_buffer``).
+
+Multi-GPU, one process per GPU (``parallel/mesh.py``), as the distillation
+trainer: ``data_parallel`` ranks train on their slices of each global batch
+and average the gradients, the BatchNorm running statistics and the loss,
+and sum the IoU histograms, over the data group; there is no model axis,
+as in the JAX package.  Validation takes the scenes round-robin.  Launch
+with torchrun, the config's ``coordinator_address``/``num_processes``/
+``process_id``, or ``main`` alone, which starts ``data_parallel`` local
+processes.
 
 Run: ``python -m openscene_tpu_torch.runtime.train_seg --config
 configs/scannet/mink.yaml [--device cuda|cpu] [key value]*``
@@ -30,6 +38,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import metrics
 from ..config import Config, load_cli
@@ -37,13 +46,15 @@ from ..data.batch import (SegBatch, assemble_raw_seg_batch,
                           assemble_seg_batch)
 from ..data.loaders import Point3DLoader
 from ..models.sparse_unet import MinkUNet
+from ..parallel import launch
+from ..parallel.mesh import Mesh, replicate, sum_over_data
 from ..sparse.geometry import geometry_to_device
 from ..sparse.types import UNetGeometry
 from ..utils.train_utils import (AverageMeter, ScalarWriter, get_logger,
                                  save_checkpoint)
 from .distill import (DeviceGeometryTraining, TrainStep, compute_dtype,
                       iou_histograms)
-from .evaluate import SceneGeometry
+from .evaluate import SceneGeometry, rank_scene_rounds
 
 log = get_logger()
 
@@ -95,7 +106,8 @@ class SegTrainStep(TrainStep):
     """``step(batch) -> (loss, inter, union, tgt)``: one SGD update on a
     host-geometry :class:`SegBatch` (:meth:`run` on device geometry, as
     :class:`TrainStep`), with the batch's IoU histograms over its voxels;
-    all four are device tensors."""
+    all four are device tensors.  Under a mesh the loss is the data
+    group's mean and the histograms its sums."""
 
     @staticmethod
     def parts(batch) -> tuple:
@@ -112,14 +124,18 @@ class SegTrainStep(TrainStep):
 
     def run(self, geo: UNetGeometry, feats, labels):
         loss = super().run(geo, feats, labels)
-        return (loss,) + self._hist
+        hist = self._hist
+        if self.mesh is not None:
+            hist = sum_over_data(hist, self.mesh)
+        return (loss,) + tuple(hist)
 
 
 def make_seg_train_step(cfg: Config, model: MinkUNet,
                         optimizer: torch.optim.Optimizer,
                         schedule: Callable[[int], float], device,
-                        it: int = 0) -> SegTrainStep:
-    return SegTrainStep(cfg, model, optimizer, schedule, device, it)
+                        it: int = 0, mesh: Optional[Mesh] = None
+                        ) -> SegTrainStep:
+    return SegTrainStep(cfg, model, optimizer, schedule, device, it, mesh)
 
 
 def make_seg_eval_step(cfg: Config):
@@ -147,17 +163,20 @@ class SegSceneLogits:
     """``scenes(sample) -> (logits, labels)``: one scene's fp32 logits and
     labels at its original points, as NumPy arrays, its geometry built on
     the device under ``device_geometry`` (``geometry.overflows`` counts the
-    scenes planned on the host instead), else on the host."""
+    scenes planned on the host instead), else on the host.  ``caps``: the
+    level caps of the scene's device geometry when a multi-GPU caller
+    shares them (``SceneGeometry.share_caps``), else the running caps."""
 
-    def __init__(self, cfg: Config, model: MinkUNet, device: torch.device):
+    def __init__(self, cfg: Config, model: MinkUNet, device: torch.device,
+                 mesh: Optional[Mesh] = None):
         self.model = model
         self.step = make_seg_eval_step(cfg)
-        self.geometry = SceneGeometry(cfg, device)
+        self.geometry = SceneGeometry(cfg, device, mesh)
 
-    def __call__(self, sample):
+    def __call__(self, sample, caps=None):
         hit = self.geometry.device_batch(
             lambda caps: assemble_raw_seg_batch([sample], caps=caps,
-                                                eval_all=True))
+                                                eval_all=True), caps)
         if hit is not None:
             batch, out = hit[0], self.step(self.model, *hit)
         else:
@@ -170,21 +189,23 @@ class SegSceneLogits:
 
 class SegTrainer(DeviceGeometryTraining):
     def __init__(self, cfg: Config, device=None):
-        self._init_device_geometry(cfg, device)
+        self._init_device_geometry(cfg, device, "train_seg")
         gen = torch.Generator().manual_seed(cfg.manual_seed)
         self.model = MinkUNet(3, cfg.classes, cfg.arch_3d,
                               generator=gen).to(self.device)
+        replicate(self.model, self.mesh)
         self.train_data = Point3DLoader(
             datapath_prefix=cfg.data_root, voxel_size=cfg.voxel_size,
             split="train", aug=cfg.aug, memcache=cfg.use_shm, loop=cfg.loop,
             input_color=cfg.input_color, seed=cfg.manual_seed)
         self.batches_per_epoch = max(
-            len(self.train_data) // max(cfg.batch_size, 1), 1)
+            len(self.train_data) // (self.per_dev_batch * self.n_dp), 1)
         self.max_iter = cfg.epochs * self.batches_per_epoch
         self.optimizer, self.schedule = make_seg_optimizer(
             cfg, self.model, self.max_iter)
         self.step_fn = make_seg_train_step(cfg, self.model, self.optimizer,
-                                           self.schedule, self.device)
+                                           self.schedule, self.device,
+                                           mesh=self.mesh)
         self.rng = np.random.default_rng(cfg.manual_seed)
         self.start_epoch = cfg.start_epoch
         self.best_iou = 0.0
@@ -229,45 +250,62 @@ class SegTrainer(DeviceGeometryTraining):
         return loss_meter.avg, miou
 
     def validate(self) -> float:
-        """Single-repeat val mIoU at the original points."""
-        scenes = SegSceneLogits(self.cfg, self.model, self.device)
+        """Single-repeat val mIoU at the original points; the data ranks
+        take the scenes round-robin and every rank gets the mIoU of all of
+        them."""
+        scenes = SegSceneLogits(self.cfg, self.model, self.device, self.mesh)
         preds, gts = [], []
-        for i in range(len(self.val_data)):
-            logits, labels = scenes(self.val_data.get(i))
-            preds.append(logits.argmax(1))
-            gts.append(labels)
-        miou = metrics.evaluate(np.concatenate(preds), np.concatenate(gts),
+        for _, sample, caps in rank_scene_rounds(
+                self.val_data.get, len(self.val_data), self.mesh,
+                scenes.geometry):
+            if sample is not None:
+                logits, labels = scenes(sample, caps)
+                preds.append(logits.argmax(1))
+                gts.append(labels)
+        pred, gt = np.concatenate(preds), np.concatenate(gts)
+        if self.mesh is not None:
+            parts = [None] * self.n_dp
+            dist.all_gather_object(parts, (pred, gt))
+            pred = np.concatenate([p for p, _ in parts])
+            gt = np.concatenate([g for _, g in parts])
+        miou = metrics.evaluate(pred, gt,
                                 dataset=self.train_data.dataset_name)
         log.info("Val mIoU: %.4f", miou)
         return miou
 
     def fit(self) -> float:
         cfg = self.cfg
-        writer = ScalarWriter(cfg.save_path)
+        writer = ScalarWriter(cfg.save_path) if self.is_main else None
         for epoch in range(self.start_epoch, cfg.epochs):
             loss_train, _ = self.train_epoch(epoch, writer)
             epoch_log = epoch + 1
-            writer.add_scalar("loss_train", loss_train, epoch_log)
+            if writer:
+                writer.add_scalar("loss_train", loss_train, epoch_log)
             is_best = False
             if cfg.evaluate and epoch_log % cfg.eval_freq == 0:
                 miou = self.validate()
-                writer.add_scalar("mIoU_val", miou, epoch_log)
+                if writer:
+                    writer.add_scalar("mIoU_val", miou, epoch_log)
                 is_best = miou > self.best_iou
                 self.best_iou = max(self.best_iou, miou)
             if epoch_log % cfg.save_freq == 0:
-                save_checkpoint({
-                    "epoch": epoch_log, "model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "best_iou": self.best_iou,
-                }, is_best, join(cfg.save_path, "model"))
+                payload = self._checkpoint(epoch_log)
+                if self.is_main:
+                    save_checkpoint(payload, is_best,
+                                    join(cfg.save_path, "model"))
         log.info("==>Training done!\nBest Iou: %.3f", self.best_iou)
         return self.best_iou
 
 
-def main(argv=None):
-    cfg, device = load_cli(argv if argv is not None else sys.argv[1:])
+def train(cfg: Config, device=None) -> float:
+    """One rank's training run (``main``'s work on every rank)."""
     os.makedirs(join(cfg.save_path, "model"), exist_ok=True)
     return SegTrainer(cfg, device=device).fit()
+
+
+def main(argv=None):
+    cfg, device = load_cli(argv if argv is not None else sys.argv[1:])
+    return launch.run(train, cfg, device)
 
 
 if __name__ == "__main__":

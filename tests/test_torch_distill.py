@@ -518,11 +518,16 @@ def test_main_runs_one_epoch_on_cpu(synth, tmp_path, head32):
     assert os.path.exists(tmp_path / "exp" / "model" / "model_last.ckpt")
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(data_parallel=2), "multi-GPU"),
-    (dict(model_parallel=2), "multi-GPU"),
-    (dict(device_geometry="on", data_parallel=2), "multi-GPU"),
-])
-def test_trainer_refuses_what_is_not_ported(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(data_parallel=2), RuntimeError, "torchrun.*main"),
+    (dict(model_parallel=5), ValueError, "must divide the distill head's "
+     "D=768"),
+    (dict(device_geometry="on", data_parallel=2), RuntimeError,
+     "torchrun.*main"),
+], ids=["kw0-multi-GPU", "kw1-multi-GPU", "kw2-multi-GPU"])
+def test_trainer_refuses_what_is_not_ported(kw, error, match):
+    """Multi-GPU training without the process group it asks for raises and
+    names the ways to start one (torchrun, or ``main``, which starts the
+    ranks); a model axis that does not divide the head's D raises."""
+    with pytest.raises(error, match=match):
         D.DistillTrainer(Config(**kw), device="cpu")

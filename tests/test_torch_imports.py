@@ -75,7 +75,8 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                 "utils.hostmem", "utils.flax_msgpack", "fusion.mapper",
                 "fusion.fuse", "fusion.datasets", "fusion.run_fusion",
                 "utils.ply", "preprocess.point_clouds",
-                "preprocess.scannet_2d"):
+                "preprocess.scannet_2d", "parallel.mesh", "parallel.launch",
+                "data.sharded"):
         assert "openscene_tpu_torch." + mod in names
 
 
