@@ -131,12 +131,43 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    scene 0's fused features as a val blob through ``ZeroShotEvaluator`` in
    fusion mode on the card: finite logits, the feature mask on the voxels
    fusion saw.  None of the seven kernels launches;
-10. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
+10. drives spatial sharding of one scene (``parallel/spatial.py``): (a)
+   NCCL at world size 1 through torchrun's environment, ``SpatialConv`` at
+   D=1 on scene 0 (120,695 voxels) at MinkUNet18A's L0 width 128->96; (b)
+   two ranks on ``cuda:0`` over gloo, D=2 over scene 0 at the L0 widths
+   32->32, 128->96 and 96->96.  On every rank, forward and backward of a
+   seeded cotangent through autograd against the one-card ``StencilConv``
+   on scene 0's level-0 plan on the same inputs: ``y`` and ``dx`` within
+   one bf16 ulp of the output scale with padded rows exactly zero, ``dW``
+   within ``DW_TOL`` of its scale (caps differ, so tiles differ: not
+   bit-equal); one ``spatial_conv_fwd`` and one ``spatial_conv_bwd``
+   launch per conv and none of the model's wrappers; the two wrappers
+   against their plain versions on the rank's extended buffer and against
+   a second launch; ``dW`` bit-identical on both ranks.  Per rank: cap_d,
+   the halo H, the exports E, the exchange's and the conv's ms beside the
+   one-card conv's (two ranks share one card: no scaling numbers);
+11. drives the sparse ResNet classifiers (``models/resnet.py``): ResNet18
+   and ResNet50 at their published widths, 3 colour channels -> 20
+   classes, random weights from a seed, on the first 2-scene train batch
+   with its geometry built on the card (the stem as an index plan): an
+   eval forward (finite logits, kernels against plain by the eval phase's
+   rule) and a train-mode forward and backward of a fixed cotangent
+   through the kernels, the plain versions and fp32 (gradients held as
+   ``compare_train_step`` holds the UNet's); 17 stencil and 4 down-conv
+   launches per forward and the same per backward; forward and backward
+   ms.  Earlier, right after the train phase: one val scene through
+   ``ZeroShotEvaluator`` in distill mode with ``vis_input``/``vis_pred``/
+   ``vis_gt`` (three PLYs of the scene's point count, two ``.txt``
+   legends), ``_epoch_end_viz`` on the train phase's last batch (three
+   PLYs), and one distill train step inside ``utils/profiling.trace``
+   (the trace names the gather-GEMM kernels and the ``annotate`` region);
+12. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
    train batch with few iterations: each up conv forward and
    forward+backward by the model's route against the dense route;
-11. prints the eval, train, hostmem, seg, dist and fusion summaries, the card
-   line, one ``{"kernels": [...]}`` JSON line, and last ``{"ok": true,
-   "device": {...}}``.
+13. prints the eval, train, hostmem, seg, dist, fusion, spatial, resnet and
+   exports summaries, the card line, one ``{"kernels": [...]}`` JSON line
+   (each kernel's launches on the main paths, the spatial and ResNet paths
+   included), and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It also exits non-zero when CUDA is unavailable, or when the port's
@@ -2355,6 +2386,531 @@ def dist_phase(d3, dfeat, seg_d3, card):
     return dp[0]["counts"], summary
 
 
+# ---- spatial sharding of one scene (parallel/spatial.py) ----
+
+SPATIAL_A_WIDTHS = ((128, 96),)             # MinkUNet18A's widest L0 conv
+SPATIAL_B_WIDTHS = ((32, 32), (128, 96), (96, 96))  # its L0 convs
+SPATIAL_SHARDS = 2
+SPATIAL_TIMEOUT = 300       # seconds for the two spawned ranks
+# per spatial conv, forward and backward: one kernel-1 launch forward
+# (spatial_conv_fwd), one kernel-1 (dx) and one kernel-2 (dW) backward
+# (spatial_conv_bwd); no other kernel wrapper launches
+SPATIAL_LAUNCHES = {"spatial_conv_fwd": 1, "spatial_conv_bwd": 1}
+
+
+def spatial_counts(reset=False):
+    """{name: launches} of the two spatial wrappers (set to 0 first with
+    ``reset``)."""
+    from openscene_tpu_torch.parallel import spatial as sp
+    ws = {"spatial_conv_fwd": sp.spatial_conv_fwd,
+          "spatial_conv_bwd": sp.spatial_conv_bwd}
+    if reset:
+        for w in ws.values():
+            w.launches = 0
+    return {k: w.launches for k, w in ws.items()}
+
+
+def spatial_inputs(n, cin, cout, seed):
+    """Scene-order activations (n, cin), cotangent (n, cout) and weights
+    (27, cin, cout) from a numpy seed: the same arrays in every process."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, cin), dtype=np.float32)
+    g = rng.standard_normal((n, cout), dtype=np.float32)
+    w = rng.standard_normal((27, cin, cout), dtype=np.float32) * \
+        np.float32((2.0 / (27 * cout)) ** 0.5)
+    return x, g, w
+
+
+def one_card_conv(x, g, w, level0, dev):
+    """The one-card reference: ``StencilConv`` on scene 0's level-0 plan
+    (host arrays ``level0`` = (fwd, flip_perm, num), its skip plan built
+    here), forward and backward; returns (y, dx, dW, device ms of the
+    forward kernel)."""
+    import torch
+    from openscene_tpu_torch.sparse.stencil_conv import (StencilConv,
+                                                         build_conv_skip,
+                                                         stencil_conv_fwd)
+    from openscene_tpu_torch.sparse.types import ConvPlan
+    fwd_np, flip_np, n = level0
+    fwd = torch.as_tensor(fwd_np, device=dev)
+    plan = ConvPlan(fwd=fwd, flip_perm=torch.as_tensor(flip_np, device=dev),
+                    skip=build_conv_skip(fwd, n))
+    cap = fwd.shape[1]
+    x0 = torch.zeros((cap, x.shape[1]), dtype=torch.bfloat16, device=dev)
+    x0[:n] = torch.as_tensor(x, device=dev)
+    g0 = torch.zeros((cap, g.shape[1]), dtype=torch.bfloat16, device=dev)
+    g0[:n] = torch.as_tensor(g, device=dev)
+    x0.requires_grad_()
+    wt = torch.as_tensor(w, device=dev).requires_grad_()
+    y = StencilConv.apply(x0, wt, plan)
+    y.backward(g0)
+    ms = device_ms(lambda: stencil_conv_fwd(x0.detach(), wt.detach(), fwd,
+                                            plan.skip))
+    return y.detach(), x0.grad, wt.grad, ms
+
+
+def spatial_case(f, shards, rank, x, g, w, ref, dev):
+    """One rank's ``SpatialConv`` of the scene through ``f`` (forward and
+    backward, the launches counted), held against the one-card ``ref`` on
+    this shard's rows, then its kernels against their plain versions on the
+    extended buffer and against a second launch.  Returns a record of small
+    numbers (errors, tolerances, sizes, ms, counts, dW's digest)."""
+    import hashlib
+    import torch
+    from openscene_tpu_torch.parallel import spatial as sp
+    y_ref, dx_ref, dw_ref, one_ms = ref
+    lo, hi = int(shards.starts[rank]), int(shards.starts[rank + 1])
+    n_d, cap_d = hi - lo, shards.cap_d
+    rows = torch.as_tensor(shards.perm[lo:hi].astype("int64"), device=dev)
+
+    def shard(a):
+        t = torch.zeros((cap_d, a.shape[1]), dtype=torch.bfloat16,
+                        device=dev)
+        t[:n_d] = torch.as_tensor(a, device=dev).index_select(0, rows).to(
+            torch.bfloat16)
+        return t
+
+    xs, gs = shard(x), shard(g)
+    xs.requires_grad_()
+    wt = torch.as_tensor(w, device=dev).requires_grad_()
+    torch.cuda.synchronize()
+    zero_counts()
+    spatial_counts(reset=True)
+    t0 = time.time()
+    y = f(xs, wt)
+    y.backward(gs)
+    torch.cuda.synchronize()
+    main_ms = (time.time() - t0) * 1e3
+    counts = {**read_counts(), **spatial_counts()}
+    dx, dw = xs.grad, wt.grad
+    scale_y = y_ref.float().abs().max().item()
+    scale_dx = dx_ref.float().abs().max().item()
+    scale_dw = dw_ref.abs().max().item()
+    rec = {
+        "rank": rank, "num": n_d, "cap_d": cap_d, "H": shards.halo_cap,
+        "n_halo": f.plan.n_halo, "E": f.plan.export_cap,
+        "n_export": f.plan.n_export, "counts": counts, "main_ms": main_ms,
+        "one_card_ms": one_ms,
+        "y_err": (y[:n_d].float() - y_ref.index_select(0, rows).float())
+        .abs().max().item(), "y_tol": BF16_ULP * scale_y,
+        "dx_err": (dx[:n_d].float() - dx_ref.index_select(0, rows).float())
+        .abs().max().item(), "dx_tol": BF16_ULP * scale_dx,
+        "dw_err": (dw - dw_ref).abs().max().item(), "dw_tol": DW_TOL * scale_dw,
+        "pads_zero": not (y[n_d:].any() or dx[n_d:].any()),
+        "dw_digest": hashlib.sha256(dw.cpu().numpy().tobytes()).hexdigest()}
+    # the exchange and the kernels alone, on this rank's extended buffer
+    plan, group = f.plan, f.group
+    xd, wd = xs.detach(), wt.detach()
+
+    def build_ext():
+        halo = sp.gather_pool(xd.index_select(0, plan.export_idx), plan,
+                              group).index_select(0, plan.halo_src)
+        return torch.cat([xd, halo]).contiguous()
+
+    ext = build_ext()
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        build_ext()
+    torch.cuda.synchronize()
+    rec["exchange_ms"] = (time.time() - t0) * 1e3 / reps
+    y_k = sp.spatial_conv_fwd(ext, wd, plan)
+    y_p = sp.spatial_conv_plain(ext, wd, plan)
+    d_k, w_k = sp.spatial_conv_bwd(ext, wd, gs, plan)
+    d_p, w_p = sp.spatial_conv_bwd_plain(ext, wd, gs, plan)
+    y_2 = sp.spatial_conv_fwd(ext, wd, plan)
+    d_2, w_2 = sp.spatial_conv_bwd(ext, wd, gs, plan)
+    torch.cuda.synchronize()
+    rec.update(
+        plain_y_err=(y_k.float() - y_p.float()).abs().max().item(),
+        plain_y_tol=BF16_ULP * y_p.float().abs().max().item(),
+        plain_dext_err=(d_k.float() - d_p.float()).abs().max().item(),
+        plain_dext_tol=BF16_ULP * d_p.float().abs().max().item(),
+        plain_dw_err=(w_k - w_p).abs().max().item(),
+        plain_dw_tol=DW_TOL * w_p.abs().max().item(),
+        deterministic=bool(torch.equal(y_k, y_2) and torch.equal(d_k, d_2)
+                           and torch.equal(w_k, w_2)),
+        conv_ms=device_ms(lambda: sp.spatial_conv_fwd(ext, wd, plan)),
+        bwd_ms=device_ms(lambda: sp.spatial_conv_bwd(ext, wd, gs, plan)),
+        plain_ms=device_ms(lambda: sp.spatial_conv_plain(ext, wd, plan),
+                           iters=5))
+    return rec
+
+
+def spatial_ok(rec, world):
+    """Whether one rank's record passes every check (launches as stated:
+    one of each spatial wrapper, none of the seven model wrappers)."""
+    want = {**expected({}), **SPATIAL_LAUNCHES}
+    return (rec["counts"] == want and rec["pads_zero"]
+            and rec["deterministic"]
+            and rec["y_err"] <= rec["y_tol"]
+            and rec["dx_err"] <= rec["dx_tol"]
+            and rec["dw_err"] <= rec["dw_tol"]
+            and rec["plain_y_err"] <= rec["plain_y_tol"]
+            and rec["plain_dext_err"] <= rec["plain_dext_tol"]
+            and rec["plain_dw_err"] <= rec["plain_dw_tol"]
+            and (world > 1 or rec["n_halo"] == 0))
+
+
+def spatial_print(what, cin, cout, rec, card):
+    print(f"spatial {what} {cin}->{cout} rank {rec['rank']}: {rec['num']} "
+          f"rows, cap_d {rec['cap_d']}, halo H {rec['H']} ({rec['n_halo']} "
+          f"valid), exports E {rec['E']} ({rec['n_export']} valid); "
+          f"exchange {rec['exchange_ms']:.3f} ms, conv {rec['conv_ms']:.4f} "
+          f"ms (one-card conv {rec['one_card_ms']:.4f} ms), backward "
+          f"{rec['bwd_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, forward "
+          f"+ backward through autograd {rec['main_ms']:.1f} ms; y err "
+          f"{rec['y_err']:.3e} (tol {rec['y_tol']:.3e}), dx "
+          f"{rec['dx_err']:.3e} ({rec['dx_tol']:.3e}), dW "
+          f"{rec['dw_err']:.3e} ({rec['dw_tol']:.3e}); kernels vs plain y "
+          f"{rec['plain_y_err']:.3e}, d_ext {rec['plain_dext_err']:.3e}, dW "
+          f"{rec['plain_dw_err']:.3e}; launches "
+          f"{ {k: v for k, v in rec['counts'].items() if v} } [{card}]",
+          flush=True)
+
+
+def _spatial_rank(coords, level0, widths, device):
+    """One of the two ranks on ``device`` (gloo): for each width, the
+    one-card reference on this rank, then the rank's SpatialConv over
+    D=2 shards; rank 0 returns both ranks' records."""
+    import torch
+    import torch.distributed as dist
+    from openscene_tpu_torch.parallel.spatial import (build_spatial_shards,
+                                                      make_spatial_conv)
+    dev = torch.device(device)
+    shards = build_spatial_shards(coords, SPATIAL_SHARDS)
+    f = make_spatial_conv(None, shards, device=dev)
+    out = []
+    for i, (cin, cout) in enumerate(widths):
+        x, g, w = spatial_inputs(len(coords), cin, cout, seed=100 + i)
+        ref = one_card_conv(x, g, w, level0, dev)
+        out.append(spatial_case(f, shards, dist.get_rank(), x, g, w, ref,
+                                dev))
+        torch.cuda.empty_cache()
+    parts = [None, None]
+    dist.all_gather_object(parts, out)
+    return parts
+
+
+def spatial_phase(geo0, card, device=DIST_DEVICE):
+    """(spatial a): NCCL at world size 1 through torchrun's environment,
+    SpatialConv at D=1 on scene 0 at 128->96 against StencilConv; (spatial
+    b): two ranks on ``device`` (the one card) over gloo, D=2 over scene 0
+    at the three L0 widths.  Returns (the launch counts of (a) and of rank
+    0 in (b), summary)."""
+    import torch
+    import torch.distributed as dist
+    from openscene_tpu_torch.parallel.launch import spawn
+    from openscene_tpu_torch.parallel.mesh import (
+        default_backend, maybe_initialize_distributed)
+    from openscene_tpu_torch.parallel.spatial import (build_spatial_shards,
+                                                      make_spatial_conv)
+    t_phase = time.time()
+    n = int(geo0.levels[0].num)
+    coords = geo0.levels[0].coords[:n].cpu().numpy()
+    level0 = (geo0.self3[0].fwd.cpu().numpy(),
+              geo0.self3[0].flip_perm.cpu().numpy(), n)
+    dev = torch.device(device)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    recs_a = []
+    try:
+        if not maybe_initialize_distributed(None, dev):
+            raise AssertionError("torchrun's environment made no group")
+        backend = dist.get_backend()
+        shards = build_spatial_shards(coords, 1)
+        f = make_spatial_conv(None, shards, device=dev)
+        for i, (cin, cout) in enumerate(SPATIAL_A_WIDTHS):
+            x, g, w = spatial_inputs(n, cin, cout, seed=100 + i)
+            ref = one_card_conv(x, g, w, level0, dev)
+            recs_a.append(spatial_case(f, shards, 0, x, g, w, ref, dev))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    if backend != default_backend(dev):
+        raise AssertionError(f"(spatial a): backend {backend}")
+    for (cin, cout), rec in zip(SPATIAL_A_WIDTHS, recs_a):
+        spatial_print("(a) NCCL world size 1, D=1, scene 0", cin, cout, rec,
+                      card)
+        if not spatial_ok(rec, 1):
+            raise AssertionError(f"(spatial a) {cin}->{cout}: a check "
+                                 f"failed: {rec}")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = spawn(_spatial_rank, SPATIAL_SHARDS, coords, level0,
+                  SPATIAL_B_WIDTHS, device, backend="gloo", device=device,
+                  timeout=SPATIAL_TIMEOUT)
+    t_ranks = time.time() - t0
+    for i, (cin, cout) in enumerate(SPATIAL_B_WIDTHS):
+        recs = [r[i] for r in ranks]
+        for rec in recs:
+            spatial_print(f"(b) gloo, D={SPATIAL_SHARDS} on one card, scene "
+                          "0", cin, cout, rec, card)
+        same = len({r["dw_digest"] for r in recs}) == 1
+        print(f"spatial (b) {cin}->{cout}: dW bit-identical on both ranks "
+              f"{same} ({DIST_CAVEAT})", flush=True)
+        if not (same and all(spatial_ok(r, SPATIAL_SHARDS) for r in recs)
+                and all(r["n_halo"] > 0 for r in recs)):
+            raise AssertionError(f"(spatial b) {cin}->{cout}: a check "
+                                 f"failed: {recs}")
+    dt = time.time() - t_phase
+    print(f"spatial phase: {dt:.1f}s wall ({t_ranks:.1f}s of the two ranks) "
+          f"[{card}]", flush=True)
+
+    def strip(r):
+        return {k: v for k, v in r.items() if k != "dw_digest"}
+
+    summary = {"seconds": dt, "ranks_s": t_ranks,
+               "a": [strip(r) for r in recs_a],
+               "b": [[strip(r[i]) for r in ranks]
+                     for i in range(len(SPATIAL_B_WIDTHS))]}
+    a_counts = {k: sum(r["counts"][k] for r in recs_a)
+                for k in SPATIAL_LAUNCHES}
+    b_counts = {k: sum(rec["counts"][k] for rec in ranks[0])
+                for k in SPATIAL_LAUNCHES}
+    return a_counts, b_counts, summary
+
+
+# ---- the sparse ResNet classifiers (models/resnet.py) ----
+
+RESNET_ARCHS_SMOKE = ("ResNet18", "ResNet50")
+RESNET_CLASSES = 20
+# per forward, for ResNet18 and ResNet50 alike: the k=5 stem and 16 k=3
+# convs, and the 4 down convs; the backward the same counts
+RESNET_LAUNCHES = {"stencil_conv_fwd": 17, "down_conv_fwd": 4}
+RESNET_BWD_LAUNCHES = {"stencil_conv_bwd": 17, "down_conv_bwd": 4}
+
+
+def resnet_phase(first, card, device):
+    """ResNet18 and ResNet50 at their published widths, 3 colour channels
+    -> 20 classes, random weights from a seed, on the first 2-scene train
+    batch (``first`` = (level-0 coords, num, caps)) with its geometry built
+    on the card, the stem as an index plan: an eval forward (logits finite,
+    kernels against plain by the eval phase's rule), and a train-mode
+    forward and backward with a fixed cotangent through the kernels, the
+    plain versions and the plain versions in fp32 (gradients held as
+    ``compare_train_step`` holds the UNet's), and the same in eval mode
+    (BatchNorm on its running statistics: behind training-mode BatchNorm
+    and the global pool the bf16 gradients of either path are mostly
+    rounding, 0.4-1.3 of the fp32 ones' norm in a CPU rehearsal, so only
+    the eval-mode gate holds the convs' backward tightly).  Launch counts
+    checked;
+    forward and backward ms.  Returns (the launches of both archs' eval
+    forwards and train steps through the kernels, summary)."""
+    import contextlib
+    import copy
+    import numpy as np
+    import torch
+    from openscene_tpu_torch.models import ResNet
+    from openscene_tpu_torch.sparse.geometry_device import (
+        build_geometry_parts, with_host_counts)
+    t_phase = time.time()
+    coords, num, caps = first
+    geo, overflow = with_host_counts(*build_geometry_parts(
+        torch.as_tensor(coords, device=device), num, caps,
+        stem_occupancy=False, n_scenes=TRAIN_BATCH))
+    if overflow or geo.stem.fwd is None or geo.stem.fwd.shape[0] != 125:
+        raise AssertionError("ResNet geometry: overflow or no stem plan")
+    rng = np.random.default_rng(7)
+    cap0 = geo.levels[0].cap
+    colours = np.zeros((cap0, 3), np.float32)
+    colours[:num] = rng.uniform(-1, 1, (num, 3))
+    cot = torch.as_tensor(rng.standard_normal((TRAIN_BATCH, RESNET_CLASSES),
+                                              dtype=np.float32),
+                          device=device)
+    x32 = torch.as_tensor(colours, device=device)
+    xb = x32.to(torch.bfloat16)
+    want_eval = expected(RESNET_LAUNCHES)
+    want_train = expected({**RESNET_LAUNCHES, **RESNET_BWD_LAUNCHES})
+    summary, counts = {}, dict.fromkeys(wrappers(), 0)
+    for arch in RESNET_ARCHS_SMOKE:
+        model = ResNet(3, RESNET_CLASSES, arch,
+                       generator=torch.Generator().manual_seed(0)).to(device)
+        state0 = copy.deepcopy(model.state_dict())
+        # eval: kernels against plain
+        model.eval()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.time()
+            logits_k = model(xb, geo, TRAIN_BATCH)
+            torch.cuda.synchronize()
+            fwd_ms = (time.time() - t0) * 1e3
+            got_eval = read_counts()
+            with plain_path():
+                logits_p = model(xb, geo, TRAIN_BATCH)
+        scale = logits_p.abs().max().item()
+        lerr = (logits_k - logits_p).abs().max().item()
+        top2 = logits_p.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) >= 1e-3
+        agree = ((logits_k.argmax(1) == logits_p.argmax(1))[clear]
+                 .float().mean().item() if clear.any() else 1.0)
+        eval_ok = (torch.isfinite(logits_k).all().item()
+                   and logits_k.shape == (TRAIN_BATCH, RESNET_CLASSES)
+                   and lerr <= 4 * BF16_ULP * scale and agree >= 0.995
+                   and got_eval == want_eval)
+
+        # one forward and backward of <logits, cot> per path, in train mode
+        # (BatchNorm on the batch's statistics) and in eval mode (on the
+        # running ones, where no cancellation hides the convs' backward)
+        def run(x, plain, train):
+            model.load_state_dict(state0)
+            model.train(train)
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.time()
+            with (plain_path() if plain else contextlib.nullcontext()):
+                out = model(x, geo, TRAIN_BATCH)
+                torch.cuda.synchronize()
+                t1 = time.time()
+                (out * cot).sum().backward()
+                torch.cuda.synchronize()
+            t2 = time.time()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+            return (out.detach(), grads, read_counts(), (t1 - t0) * 1e3,
+                    (t2 - t1) * 1e3)
+
+        def rel(a, b):
+            each = {n: ((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30)
+                        ).item() for n in b}
+            num_ = sum((a[n] - b[n]).norm().item() ** 2 for n in b) ** 0.5
+            return each, num_ / sum(b[n].norm().item() ** 2
+                                    for n in b) ** 0.5
+
+        rec = {"eval_forward_ms": fwd_ms, "logits_err": lerr,
+               "logits_scale": scale, "argmax_agreement": agree,
+               "eval_launches": got_eval, "voxels": int(num)}
+        grads_ok = True
+        for mode, train in (("train", True), ("eval", False)):
+            out_k, g_k, got_k, f_ms, b_ms = run(xb, False, train)
+            out_p, g_p, got_p, _, _ = run(xb, True, train)
+            _, g_32, _, _, _ = run(x32, True, train)
+            k32, k32_all = rel(g_k, g_32)
+            p32, p32_all = rel(g_p, g_32)
+            worst = max(k32, key=lambda n: k32[n] / (3 * p32[n] + 0.05))
+            terr = (out_k.float() - out_p.float()).abs().max().item()
+            tscale = out_p.abs().max().item()
+            grads_ok = grads_ok and (
+                all(torch.isfinite(g).all().item() for g in g_k.values())
+                and got_k == want_train and not any(got_p.values())
+                and terr <= 4 * BF16_ULP * tscale
+                and k32_all <= 1.25 * p32_all + 0.01
+                and k32[worst] <= 3 * p32[worst] + 0.05)
+            rec[mode] = {
+                "forward_ms": f_ms, "backward_ms": b_ms, "logits_err": terr,
+                "logits_scale": tscale, "grad_rel_l2_kernels_vs_fp32":
+                k32_all, "grad_rel_l2_plain_vs_fp32": p32_all,
+                "worst_param": worst, "worst_kernels_vs_fp32": k32[worst],
+                "worst_plain_vs_fp32": p32[worst], "launches": got_k}
+            if train:
+                got_train = got_k
+        summary[arch] = rec
+        print(f"resnet {arch} 3->{RESNET_CLASSES} on the first "
+              f"{TRAIN_BATCH}-scene train batch ({int(num)} voxels, caps "
+              f"{list(caps)}; geometry on the card, stem as an index plan): "
+              f"{json.dumps(rec)} [{card}]", flush=True)
+        if not (eval_ok and grads_ok):
+            raise AssertionError(f"resnet {arch}: a check failed")
+        for k in counts:
+            counts[k] += got_train[k] + got_eval[k]
+        del model
+        torch.cuda.empty_cache()
+    dt = time.time() - t_phase
+    summary["seconds"] = dt
+    print(f"resnet phase: {dt:.1f}s wall [{card}]", flush=True)
+    return counts, summary
+
+
+# ---- the eval and trainer exports, and profiling ----
+
+def exports_phase(trainer, batch, d3, dfeat, card, device):
+    """One val scene through ``ZeroShotEvaluator`` in distill mode with
+    ``vis_input``/``vis_pred``/``vis_gt`` on the card (three PLYs with the
+    scene's point count and two ``.txt`` legends; the card's machine has
+    no matplotlib, so no ``.jpg`` is asked for); ``_epoch_end_viz`` on the
+    train phase's last batch (three PLYs); one distill train step inside
+    ``utils/profiling.trace`` (the trace names the gather-GEMM kernels and
+    the ``annotate`` region).  Returns a summary."""
+    import torch
+    from openscene_tpu_torch.data.scene_io import load_scene
+    from openscene_tpu_torch.runtime.evaluate import (ZeroShotEvaluator,
+                                                      load_model_for_eval)
+    from openscene_tpu_torch.utils.ply import read_ply
+    from openscene_tpu_torch.utils.profiling import annotate, trace
+    t_phase = time.time()
+    out = {}
+    folder = os.path.join(HERE, "build", "smoke_vis")
+    shutil.rmtree(folder, ignore_errors=True)
+    cfg = eval_config(d3, dfeat, "distill").copy(
+        vis_input=True, vis_pred=True, vis_gt=True, save_folder=folder,
+        test_workers=1)
+    ev = ZeroShotEvaluator(cfg, load_model_for_eval(cfg, device),
+                           allow_pseudo_text=True, device=device)
+    loader = ev._loader()
+    loader.data_paths = loader.data_paths[:1]
+    ev._loader = lambda: loader
+    res = ev.run()
+    n_points = len(load_scene(str(loader.data_paths[0]))[0])
+    plys = ["0_input.ply", "0_distill.ply", "0_gt.ply"]
+    sizes = {p: len(read_ply(os.path.join(folder, p))["vertex"])
+             for p in plys}
+    legends = [t for t in ("0_labels_distill.jpg.txt", "0_labels_gt.jpg.txt")
+               if os.path.isfile(os.path.join(folder, t))]
+    out["eval_vis"] = {"files": sorted(os.listdir(folder)),
+                       "points": n_points, "ply_points": sizes,
+                       "miou": res["miou"]}
+    print(f"exports: eval vis (distill, 1 val scene, {n_points} points): "
+          f"{sorted(os.listdir(folder))}, PLY points {sizes} [{card}]",
+          flush=True)
+    if not (all(v == n_points for v in sizes.values()) and len(legends) == 2):
+        raise AssertionError("eval vis exports: a check failed")
+    # the trainer's epoch-end dump, from the train phase's last batch
+    last = os.path.join(trainer.cfg.save_path, "result", "last")
+    shutil.rmtree(last, ignore_errors=True)
+    trainer._epoch_end_viz(0, batch)
+    got = sorted(os.listdir(last))
+    want = ["gt_1.ply", "openseg_1.ply", "pred_1.ply"]
+    pts = {p: len(read_ply(os.path.join(last, p))["vertex"]) for p in want
+           if p in got}
+    out["epoch_end_viz"] = {"files": got, "points": pts}
+    print(f"exports: epoch-end viz of the last train batch: {got}, points "
+          f"{pts} [{card}]", flush=True)
+    if got != want or len(set(pts.values())) != 1 or not min(pts.values()):
+        raise AssertionError("epoch-end viz: a check failed")
+    # one train step inside trace
+    tdir = os.path.join(HERE, "build", "smoke_trace")
+    shutil.rmtree(tdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with trace(tdir):
+        with annotate("smoke distill train step"):
+            trainer.train_step(batch)
+    t_trace = time.time() - t0
+    files = os.listdir(tdir)
+    with open(os.path.join(tdir, files[0])) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    found = {k: any(k in nm for nm in names)
+             for k in ("gather_gemm_fwd_kernel", "gather_wgrad_kernel",
+                       "smoke distill train step")}
+    out["trace"] = {"files": files, "found": found, "seconds": t_trace}
+    print(f"exports: profiling.trace of one distill train step "
+          f"({t_trace:.1f}s with the trace): {files}, names found {found} "
+          f"[{card}]", flush=True)
+    if len(files) != 1 or not all(found.values()):
+        raise AssertionError("profiling trace: a check failed")
+    dt = time.time() - t_phase
+    out["seconds"] = dt
+    print(f"exports and profiling phase: {dt:.1f}s wall [{card}]", flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2532,6 +3088,7 @@ def main():
     del ev, model, logits_k, logits_p
 
     # ---- 4. the training path, geometry built on the card ----
+    first = (raw.coords, int(raw.num), tuple(caps))  # ResNet's batch
     del raw, host_geo
     t_raw_asm, t_host_asm = assembly_times(trainer, card)
     train_launches, train_summary = train_phase(
@@ -2564,6 +3121,7 @@ def main():
                   f"dense design's {DENSE_DESIGN_TRAIN_CONV_MS[0]} + "
                   f"{DENSE_DESIGN_TRAIN_CONV_MS[1]} ms [{card}]", flush=True)
     compare_train_step(trainer, host_batch)
+    exports_stats = exports_phase(trainer, pbatch, d3, dfeat, card, device)
     del trainer, batches, host_batch
     hostmem_stats = hostmem_phase(d3, dfeat, card)
 
@@ -2582,7 +3140,16 @@ def main():
     # ---- 7. multi-view fusion at the ScanNet spec, 768-d ----
     fusion_stats = fusion_phase(card, device)
 
-    # ---- 8. the per-op benchmark on the train batch ----
+    # ---- 8. spatial sharding of one scene; the ResNet classifiers ----
+    spatial_a, spatial_b, spatial_stats = spatial_phase(geo0, card)
+    for name, sp in (("stencil_conv_fwd", "spatial_conv_fwd"),
+                     ("stencil_conv_bwd", "spatial_conv_bwd")):
+        launches[name] += spatial_a[sp] + spatial_b[sp]  # rank 0's in (b)
+    resnet_launches, resnet_stats = resnet_phase(first, card, device)
+    for k in launches:
+        launches[k] += resnet_launches[k]
+
+    # ---- 9. the per-op benchmark on the train batch ----
     t0 = time.time()
     bench = bench_ops(praw.coords, int(praw.num), n_scenes=TRAIN_BATCH,
                       iters=BENCH_ITERS)
@@ -2595,7 +3162,7 @@ def main():
             raise AssertionError(f"{k} was not launched on its main path")
         launches[k] += n
 
-    # ---- 9. report ----
+    # ---- 10. report ----
     kernels = []
     for name, shapes in cases.items():
         main_shape = shapes[0]
@@ -2609,7 +3176,13 @@ def main():
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
             "dist_rank_launches": dist_launches[name],
+            "resnet_launches": resnet_launches[name],
             "shapes": shapes}
+        sp = {"stencil_conv_fwd": "spatial_conv_fwd",
+              "stencil_conv_bwd": "spatial_conv_bwd"}.get(name)
+        if sp:  # the spatial conv's wrapper launches this kernel
+            entry["spatial_launches"] = {"wrapper": sp, "a": spatial_a[sp],
+                                         "b_rank0": spatial_b[sp]}
         if name in ("stencil_conv_fwd", "down_conv_fwd", "up_conv_fwd"):
             entry["launches_per_forward"] = eval_launches[name] / forwards
         elif name in main_launches:
@@ -2627,6 +3200,9 @@ def main():
     print(f"seg: {json.dumps(seg_stats)}", flush=True)
     print(f"dist: {json.dumps(dist_stats)}", flush=True)
     print(f"fusion: {json.dumps(fusion_stats)}", flush=True)
+    print(f"spatial: {json.dumps(spatial_stats)}", flush=True)
+    print(f"resnet: {json.dumps(resnet_stats)}", flush=True)
+    print(f"exports: {json.dumps(exports_stats)}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Carry the JAX package's (params, state) trees across to the port.
 
-``openscene_tpu`` keeps MinkUNet weights as nested dicts/lists of arrays
+``openscene_tpu`` keeps MinkUNet (and ResNet) weights as nested dicts/lists of arrays
 (``models/sparse_unet.py:init_unet``); the port's ``MinkUNet`` names its
 parameters and buffers by the same paths, so the conversion is a flatten:
 ``params["block1"][0]["conv1"]`` becomes ``"block1.0.conv1"``, and the BN
@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .models.resnet import RESNET_ARCHS
 from .models.sparse_unet import ARCHS
 
 
@@ -49,6 +50,20 @@ def params_from_jax(params, state, arch: str) -> Dict[str, torch.Tensor]:
     """JAX (params, state) trees -> the port's ``MinkUNet`` state_dict."""
     a = ARCHS[arch]
     for b in range(1, 9):
+        if len(params[f"block{b}"]) != a.layers[b - 1]:
+            raise ValueError(f"block{b} has {len(params[f'block{b}'])} "
+                             f"blocks, {arch} has {a.layers[b - 1]}")
+    flat = {**flatten_tree(params), **flatten_tree(state)}
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in flat.items()}
+
+
+def resnet_params_from_jax(params, state, arch: str
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_resnet`` (params, state) trees -> the port's ``ResNet``
+    state_dict."""
+    a = RESNET_ARCHS[arch]
+    for b in range(1, 5):
         if len(params[f"block{b}"]) != a.layers[b - 1]:
             raise ValueError(f"block{b} has {len(params[f'block{b}'])} "
                              f"blocks, {arch} has {a.layers[b - 1]}")

@@ -10,7 +10,10 @@ engages eight devices in the JAX package.
 
 :func:`spawn` runs ``fn(*args)`` in ``nprocs`` fresh interpreters
 (``torch.multiprocessing``'s spawn start method: ``fn`` is pickled by its
-module's name, and the module must import in a new process).  The ranks
+module's name, and the module must import in a new process).  Each rank
+also re-imports the caller's main script, so a script that calls
+:func:`spawn` keeps its own work under ``if __name__ == "__main__":``;
+unguarded, every rank runs the script again from the top.  The ranks
 join one process group through a file store in a fresh temporary
 directory; rank ``r`` sees ``LOCAL_RANK=r``, so a CUDA run puts it on
 ``cuda:r`` unless ``device`` names a card.  Rank 0's return value comes

@@ -37,7 +37,9 @@ whole head.  A run starts under torchrun (``torchrun --nproc_per_node N -m
 openscene_tpu_torch.runtime.distill ...``), with the config's
 ``coordinator_address``/``num_processes``/``process_id``, or from ``main``
 alone, which starts ``data_parallel x model_parallel`` local processes.
-The epoch-end qualitative export is not ported yet (ROADMAP).
+After each epoch rank 0 writes a qualitative PLY dump of its last batch
+(fused 2D labels, predictions, ground truth) under ``save_path/result/
+last``.
 
 Run: ``python -m openscene_tpu_torch.runtime.distill --config <yaml>
 [--device cuda|cpu] [key value]*``
@@ -574,7 +576,7 @@ class DistillTrainer(DeviceGeometryTraining):
         self.best_iou = 0.0
 
         labelset_name = dataset_name_from_root(cfg.data_root)
-        labels, _, _ = labelset_and_palette(labelset_name)
+        labels, self.palette, _ = labelset_and_palette(labelset_name)
         text = extract_text_features(
             labels, cfg.feature_2d_extractor, cfg.data_root, cfg.prompt_eng,
             cfg.text_embedding_cache, embedding_file=cfg.embedding_file,
@@ -602,6 +604,7 @@ class DistillTrainer(DeviceGeometryTraining):
         data_meter = AverageMeter()
         batch_meter = AverageMeter()
         end = time.time()
+        batch = None
         for i, batch in enumerate(self._epoch_batches()):
             data_meter.update(time.time() - end)
             loss = float(self.train_step(batch))  # waits for the device
@@ -617,7 +620,72 @@ class DistillTrainer(DeviceGeometryTraining):
                     loss_meter.val, self.schedule(self.global_step))
             if writer:
                 writer.add_scalar("loss_train_batch", loss, self.global_step)
+        # the model group of data rank 0 (every rank of it: the head's
+        # logits are summed over it); rank 0 writes
+        if (self.cfg.save_path and batch is not None
+                and (self.mesh is None or self.mesh.data_index == 0)):
+            try:
+                self._epoch_end_viz(epoch, batch)
+            except Exception as e:  # a qualitative dump never stops training
+                log.warning("epoch-end viz failed: %s", e, exc_info=True)
         return loss_meter.avg
+
+    @torch.no_grad()
+    def _epoch_end_viz(self, epoch: int, batch) -> None:
+        """Epoch-end qualitative PLY dump comparing fused 2D labels, model
+        predictions and GT on scene 0 of ``batch``, this rank's last train
+        batch (run/distill.py:372-398; the JAX trainer's
+        ``_epoch_end_viz``): ``save_path/result/last/{ext}_{epoch}.ply``,
+        ``pred_{epoch}.ply`` and ``gt_{epoch}.ply``, at the level-0 voxel
+        coordinates of scene 0's voxels that have targets.  The model runs
+        in eval mode on the batch's geometry (built on the device for a raw
+        batch, on the host where that overflows)."""
+        from ..utils.viz import export_labeled_cloud
+        dev = self.device
+        if isinstance(batch, DistillBatch):
+            geo = geometry_to_device(batch.geo, dev)
+        else:  # (raw batch, caps)
+            raw, caps = batch
+            geo, overflow = self._raw_step(caps).geometry(raw)
+            batch = raw
+            if overflow:
+                batch = host_batch_from_raw(raw)
+                geo = geometry_to_device(batch.geo, dev)
+        n = int(geo.levels[0].num)
+        coords = geo.levels[0].coords[:n].cpu().numpy()
+        rows = (np.asarray(batch.mask[:n]) > 0) & (coords[:, 0] == 0)
+        if not rows.any():
+            return
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            x = torch.as_tensor(batch.feats, device=dev).to(
+                compute_dtype(self.cfg))
+            out = self.model(x, geo, constant_input=not self.cfg.input_color)
+        finally:
+            self.model.train(was_training)
+        sel = torch.as_tensor(np.flatnonzero(rows), device=dev)
+        text_t = head_shard(self.text, self.mesh).t().float()
+        logits = out.index_select(0, sel) @ text_t
+        if model_axis_size(self.mesh) > 1:  # the head's columns summed
+            (logits,) = group_sum((logits,), self.mesh.model_group)
+        pred_ids = logits.argmax(1).cpu().numpy()
+        text_np = self.text.t().float().cpu().numpy()
+        img_ids = (np.asarray(batch.feat_3d[:n][rows], dtype=np.float32)
+                   @ text_np).argmax(1)
+        gt = np.asarray(batch.labels[:n][rows]).copy()
+        gt[gt == 255] = self.cfg.classes
+        if not self.is_main:
+            return
+        pcl = coords[rows][:, 1:].astype(np.float32)
+        folder = join(self.cfg.save_path, "result", "last")
+        os.makedirs(folder, exist_ok=True)
+        ext = self.cfg.feature_2d_extractor
+        for name, ids in ((f"{ext}_{epoch + 1}", img_ids),
+                          (f"pred_{epoch + 1}", pred_ids),
+                          (f"gt_{epoch + 1}", gt)):
+            export_labeled_cloud(join(folder, f"{name}.ply"), pcl, ids,
+                                 self.palette)
 
     def validate(self) -> Tuple[float, float, float, float]:
         """Loss (the mean of the scenes' mean losses), mIoU, mAcc and

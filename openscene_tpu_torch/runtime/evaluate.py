@@ -38,6 +38,11 @@ the caps).  Launch with torchrun, the config's ``coordinator_address``/
 ``num_processes``/``process_id``, or ``main`` alone, which starts
 ``data_parallel`` local processes.
 
+With ``vis_input``/``vis_pred``/``vis_gt`` every rank writes its scenes'
+PLY clouds and legends into ``save_folder`` (:meth:`ZeroShotEvaluator.
+_visualize`).  ``model_path`` may be an http(s) URL, fetched once into a
+cache (:func:`fetch_checkpoint`).
+
 Run: ``python -m openscene_tpu_torch.runtime.evaluate --config <yaml>
 [--device cuda|cpu] [key value]*``
 """
@@ -263,9 +268,7 @@ class ZeroShotEvaluator:
             raise ValueError(f"feature_type={self.mode!r} needs a model")
         self.model = None if model is None else model.to(self.device).eval()
         self.geometry = SceneGeometry(cfg, self.device, self.mesh)
-        if cfg.vis_input or cfg.vis_pred or cfg.vis_gt:
-            raise NotImplementedError(
-                "vis_input/vis_pred/vis_gt exports are not ported yet")
+        self.want_vis = cfg.vis_input or cfg.vis_pred or cfg.vis_gt
         self.step = make_eval_step(self.mode,
                                    constant_input=not cfg.input_color)
         self.mark_unknown = (cfg.mark_no_feature_to_unknown
@@ -294,6 +297,8 @@ class ZeroShotEvaluator:
                                   constant_input=not cfg.input_color,
                                   return_features=True)
             os.makedirs(save_features_to, exist_ok=True)
+        if self.want_vis:
+            os.makedirs(cfg.save_folder, exist_ok=True)
 
         need_model = self.mode != "fusion"
         for rep in range(cfg.test_repeats):
@@ -306,7 +311,8 @@ class ZeroShotEvaluator:
                 loader.get, n_scenes, self.mesh,
                 self.geometry if need_model else None, cfg.test_workers)
             rows = self._host_rows(self._scene_outputs(rounds, step), loader,
-                                   save_features_to if rep == 0 else "")
+                                   save_features_to if rep == 0 else "",
+                                   vis=self.want_vis and rep == 0)
             for i, logits, pmask, label in rows:
                 if is_nuscenes:  # evaluation points are a labeled subset
                     keep = label != 255
@@ -361,12 +367,14 @@ class ZeroShotEvaluator:
             out, n_points = self.scene(sample, step, caps)
             yield i, sample, out, n_points
 
-    def _host_rows(self, outputs, loader, save_features_to: str = ""):
+    def _host_rows(self, outputs, loader, save_features_to: str = "",
+                   vis: bool = False):
         """``(scene_idx, point logits fp32, feature mask, labels)`` as host
         arrays, in scene order, of :meth:`_scene_outputs`' ``outputs``;
-        writes the scenes' feature files to ``save_features_to``.  Under a
-        mesh rank 0 gets every rank's rows, gathered round by round, and
-        the other ranks none."""
+        writes the scenes' feature files to ``save_features_to`` and, with
+        ``vis``, their exports (:meth:`_visualize`).  Under a mesh each
+        rank writes the files of its own scenes; rank 0 gets every rank's
+        rows, gathered round by round, and the other ranks none."""
         for i, sample, out, n_pts in outputs:
             row = None
             if sample is not None:
@@ -385,6 +393,8 @@ class ZeroShotEvaluator:
                                  f"{scene_name}_openscene_feat_{self.mode}.npy"),
                             out[2][:n_pts].float().cpu().numpy()
                             .astype(feat_dtype))
+                if vis:
+                    self._visualize(i, sample, logits, label, pmask, loader)
                 row = (i, logits, pmask, label)
             if self.mesh is None:
                 yield row
@@ -392,6 +402,53 @@ class ZeroShotEvaluator:
             for r in gather_to_main(row, self.mesh) or ():
                 if r is not None:
                     yield r
+
+    def _visualize(self, i: int, sample, logits: np.ndarray,
+                   label: np.ndarray, pmask: np.ndarray, loader) -> None:
+        """vis_input / vis_pred / vis_gt exports of scene ``i``
+        (run/evaluate.py:343-376; the JAX evaluator's ``_visualize``):
+        per-point clouds at voxel-grid positions, label-palette coloured,
+        with legend sidecars; no-feature and ignored points take the
+        'unlabeled' slot.  nuScenes exports its labelled points only, as
+        its metric reads them."""
+        from ..data.scene_io import load_scene
+        from ..utils.viz import (export_labeled_cloud, export_pointcloud,
+                                 visualize_labels)
+        cfg = self.cfg
+        folder = cfg.save_folder
+        unl = len(self.class_labels)  # 'unlabeled' palette slot
+        keep = None
+        if "nuscenes" in self.labelset_name:
+            keep = label != 255
+            logits, label, pmask = logits[keep], label[keep], pmask[keep]
+        pcl = np.asarray(sample.coords, dtype=np.float32)[
+            np.asarray(sample.inds_reconstruct)]
+        if keep is not None:
+            pcl = pcl[keep]
+        if cfg.vis_input:
+            _, colors, _ = load_scene(str(loader.data_paths[i]))
+            if keep is not None:
+                colors = colors[keep]
+            export_pointcloud(join(folder, f"{i}_input.ply"), pcl,
+                              (np.asarray(colors) + 1) / 2)
+        if cfg.vis_pred:
+            pred = logits.argmax(1)
+            if self.mapper is not None:
+                pred = self.mapper[pred]
+            if self.mark_unknown:
+                pred = np.where(pmask, pred, unl)
+            export_labeled_cloud(join(folder, f"{i}_{self.mode}.ply"), pcl,
+                                 pred, self.palette)
+            visualize_labels(sorted(int(u) for u in np.unique(pred)),
+                             self.labelset_full, self.palette,
+                             join(folder, f"{i}_labels_{self.mode}.jpg"))
+        if cfg.vis_gt:
+            gt = np.where(label == 255, unl, label)
+            export_labeled_cloud(join(folder, f"{i}_gt.ply"), pcl, gt,
+                                 self.palette)
+            visualize_labels(sorted(int(u) for u in np.unique(gt)),
+                             self.labelset_full, self.palette,
+                             join(folder, f"{i}_labels_gt.jpg"))
 
     def scene(self, sample, step, caps=None):
         """``(step outputs, n_points)`` of one scene: its geometry built on
@@ -424,6 +481,40 @@ class ZeroShotEvaluator:
                                 stdout=False)
 
 
+def is_url(path: str) -> bool:
+    """Reference run/evaluate.py:59-61."""
+    scheme = str(path).split("://", 1)[0].lower() if "://" in str(path) else ""
+    return scheme in ("http", "https")
+
+
+def fetch_checkpoint(url: str, cache_dir: str = "") -> str:
+    """Download-and-cache a checkpoint URL (the reference's
+    ``model_zoo.load_url``, run/evaluate.py:166-168); returns the local
+    path.  Cached under ``~/.cache/openscene_tpu_torch/checkpoints`` keyed
+    by file name; a cached file is used without any network access.
+    Raises ``RuntimeError`` when the download fails (a host with no
+    network)."""
+    import urllib.error
+    import urllib.request
+    cache_dir = cache_dir or os.path.expanduser(
+        "~/.cache/openscene_tpu_torch/checkpoints")
+    os.makedirs(cache_dir, exist_ok=True)
+    local = join(cache_dir, os.path.basename(url))
+    if os.path.isfile(local):
+        return local
+    log.info("downloading %s -> %s", url, local)
+    tmp = local + ".part"
+    try:
+        urllib.request.urlretrieve(url, tmp)
+    except (urllib.error.URLError, OSError) as e:
+        raise RuntimeError(
+            f"could not download checkpoint {url} ({e}); on a host without "
+            f"network, download it elsewhere and pass the local path (or "
+            f"place it at {local})") from e
+    os.replace(tmp, local)
+    return local
+
+
 def load_model_for_eval(cfg: Config, device=None) -> Optional[MinkUNet]:
     """Model init + checkpoint load (skipped entirely in fusion mode,
     run/evaluate.py:164-165); the weights as :func:`load_weights` reads
@@ -444,14 +535,14 @@ def load_weights(model: MinkUNet, cfg: Config) -> None:
     ``.pth(.tar)`` checkpoint with MinkowskiEngine names (converted), a
     torch file holding the port's own ``MinkUNet`` state_dict (loaded as
     is), or a checkpoint written by the port's trainers (its ``"model"``
-    entry)."""
+    entry); an http(s) URL is fetched into the cache first
+    (:func:`fetch_checkpoint`) and then read as a local path."""
     from ..convert import params_from_jax
     path = cfg.model_path
-    if path and "://" in path:
-        raise NotImplementedError(
-            f"checkpoint URLs are not fetched ({path}); pass a local path")
     if not path:
         return
+    if is_url(path):
+        path = fetch_checkpoint(path)
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
     payload, is_flax = read_checkpoint(path)

@@ -189,3 +189,19 @@ def masked_batch_norm(x, mask, num, gamma, beta, running_mean, running_var,
 
 def relu(x):
     return torch.relu(x)
+
+
+def masked_global_avg_pool(x, mask, num, batch_ids, num_batches: int):
+    """Per-scene average over valid rows (MinkowskiGlobalPooling).
+
+    x: (cap, C); mask: (cap, 1) fp32; batch_ids: (cap,) int scene id per
+    row (padded rows may hold any id: they are masked); ``num`` is unused,
+    as in the JAX op.  Returns (num_batches, C) fp32 (fp64 for fp64 x)."""
+    acc = _acc_dtype(x.dtype)
+    xm = x.to(acc) * mask.to(acc)
+    one_hot = (batch_ids.long()[:, None]
+               == torch.arange(num_batches, device=x.device)[None, :])
+    one_hot = one_hot.to(acc) * mask.to(acc)
+    sums = one_hot.t() @ xm
+    counts = one_hot.sum(0)[:, None]
+    return sums / counts.clamp_min(1.0)

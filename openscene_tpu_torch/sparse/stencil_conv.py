@@ -104,19 +104,38 @@ def sorted_masks(bits: torch.Tensor):
 
 
 def build_conv_skip(fwd: torch.Tensor, num) -> ConvSkip:
-    """The :class:`ConvSkip` of a stencil plan ``fwd`` (K, cap) int32 with
-    ``num`` valid rows (an int or a 0-d tensor on ``fwd``'s device).
+    """The :class:`ConvSkip` of a model's stencil plan ``fwd`` (K, cap)
+    int32 with ``num`` valid rows (an int or a 0-d tensor on ``fwd``'s
+    device): a pair (k, r) holds a neighbour where ``fwd[k, r] < num`` and
+    ``r < num``.
+
+    That rule is the model's special case: its plans gather from the level
+    they write, whose valid rows are ``[0, num)``, and point every missing
+    neighbour into the padding ``[num, cap)``.  A plan that gathers from
+    another buffer breaks it: the spatial shards' plans
+    (``parallel/spatial.py``) read halo rows at ``cap + j >= num`` and their
+    transpose plans mark a missing pair with -1, so they build theirs with
+    :func:`conv_skip_from_bits` from explicit existence bits."""
+    rows = torch.arange(fwd.shape[1], device=fwd.device)
+    num = torch.as_tensor(num, device=fwd.device)
+    return conv_skip_from_bits((fwd < num) & (rows < num)[None, :])
+
+
+def conv_skip_from_bits(bits: torch.Tensor) -> ConvSkip:
+    """The :class:`ConvSkip` of a plan whose (offset k, row r) pair holds a
+    neighbour where ``bits[k, r]`` (a (K, rows) bool tensor).
 
     Plain tensor ops, the same on the CPU and on the card, deterministic (a
     stable sort, a cumulative-sum compaction) and with no read back to the
     host.  ``order`` sorts all rows by ``nbr_mask`` in one stable sort: a
     sort within windows of rows kept the gathers more local but loosened
     the tile masks, and lost on the card (PERF.md)."""
-    K, cap = fwd.shape
-    dev = fwd.device
-    num = torch.as_tensor(num, device=dev)
+    if bits.dtype != torch.bool or bits.dim() != 2:
+        raise ValueError(f"bits: {bits.dtype} {tuple(bits.shape)}, want a "
+                         "(K, rows) bool tensor")
+    K, cap = bits.shape
+    dev = bits.device
     rows = torch.arange(cap, device=dev)
-    bits = (fwd < num) & (rows < num)[None, :]                  # (K, cap)
     nbr, order, tmask = sorted_masks(bits)
     pos = torch.cumsum(bits, 1, dtype=torch.int64) - 1
     flat = torch.where(bits, pos + (torch.arange(K, device=dev) * cap)[:, None],

@@ -63,7 +63,9 @@ class ConvSkip(NamedTuple):
     alone; the part the TPU kernels' window plans played).
 
     nbr_mask:   (cap,) int32 — bit k set iff ``fwd[k, r] < num`` (and
-                ``r < num``); padded rows 0.  K <= 31.
+                ``r < num``), or where the plan's own existence bits say
+                so (the spatial shards' plans, ``parallel/spatial.py``);
+                padded rows 0.  K <= 31.
     order:      (cap,) int32 — the rows stably sorted by ``nbr_mask``.
     tile_mask:  (ceil(cap / TILE_ROWS),) int32 — OR of ``nbr_mask`` over each
                 tile of ``TILE_ROWS`` consecutive entries of ``order``.

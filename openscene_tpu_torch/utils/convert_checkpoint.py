@@ -19,10 +19,21 @@ tree layout, as NumPy arrays, which
 ME's region order (which spatial axis varies fastest along the K axis) is
 the switchable ``region_order`` parameter: ``"x_fastest"`` (default) or
 ``"z_fastest"`` (C order, identical to ``stencil_offsets``).
+:func:`probe_region_order` picks it empirically from a trained checkpoint
+and one scene, and :func:`main` converts a checkpoint on the command line:
+
+    python -m openscene_tpu_torch.utils.convert_checkpoint \
+        scannet_openseg.pth.tar out/model_converted.pth \
+        --arch MinkUNet18A [--probe_scene scene.npz,scene_fused.npz]
+
+It writes ``{"epoch": 0, "model": <the port's MinkUNet state_dict>,
+"best_iou": 0.0}`` with ``torch.save``, which
+``runtime.evaluate.load_weights`` reads as ``model_path``.
 """
 
 from __future__ import annotations
 
+import argparse
 from typing import Dict
 
 import numpy as np
@@ -129,9 +140,122 @@ def convert_state_dict(sd: Dict[str, np.ndarray], arch: str = "MinkUNet18A",
     return P, S
 
 
+def _port_state_dict(sd: Dict[str, np.ndarray], arch: str, region_order: str):
+    """The converted checkpoint as the port's ``MinkUNet`` state_dict
+    (the head's width from the checkpoint's ``final`` kernel)."""
+    from ..convert import params_from_jax
+    params, state = convert_state_dict(sd, arch, region_order=region_order)
+    return params_from_jax(params, state, arch), params["final"].shape[-1]
+
+
+def probe_region_order(sd: Dict[str, np.ndarray], arch: str,
+                       scene_coords: np.ndarray, scene_feat_3d: np.ndarray,
+                       feat_mask: np.ndarray, voxel_size: float = 0.02,
+                       device=None):
+    """Empirically pick ME's region order from a trained checkpoint (the
+    JAX package's ``probe_region_order``).
+
+    Converts the checkpoint under BOTH candidate orders and measures the
+    distill objective (mean cosine similarity between model output and the
+    scene's fused 2D features) on one real scene, in bf16 with the constant
+    input on ``device`` (``cuda`` by default).  A trained model only aligns
+    with its targets under the correct order: the wrong order spatially
+    scrambles every 27-tap kernel.  Returns ``(best_order, {order:
+    mean_cos})``."""
+    import torch
+
+    from ..data.batch import assemble_distill_batch
+    from ..data.loaders import SceneSample
+    from ..device import resolve_device
+    from ..models.sparse_unet import MinkUNet
+    from ..sparse.geometry import geometry_to_device
+
+    dev = resolve_device(device)
+    coords = np.floor(scene_coords / voxel_size).astype(np.int32)
+    coords -= coords.min(0)
+    _, first = np.unique(
+        coords[:, 0].astype(np.int64) * 2 ** 42
+        + coords[:, 1].astype(np.int64) * 2 ** 21 + coords[:, 2],
+        return_index=True)
+    vox_mask = feat_mask[first]
+    sample = SceneSample(
+        coords=coords[first],
+        feats=np.ones((len(first), 3), np.float32),
+        labels=np.zeros(len(first), np.int64), inds_reconstruct=None,
+        feat_3d=scene_feat_3d[first][vox_mask],
+        feat_mask=vox_mask)
+    batch = assemble_distill_batch([sample], scene_feat_3d.shape[1],
+                                   rng=np.random.default_rng(0), shift=False)
+    geo = geometry_to_device(batch.geo, dev)
+    x = torch.as_tensor(batch.feats, device=dev).to(torch.bfloat16)
+
+    scores = {}
+    for order in REGION_ORDERS:
+        state_dict, dim = _port_state_dict(sd, arch, order)
+        model = MinkUNet(3, dim, arch)
+        model.load_state_dict(state_dict)
+        model.to(dev).eval()
+        with torch.no_grad():
+            out = model(x, geo, constant_input=True).float().cpu().numpy()
+        t = batch.feat_3d
+        m = batch.mask > 0
+        num = (out[m] * t[m]).sum(-1)
+        den = (np.linalg.norm(out[m], axis=-1)
+               * np.linalg.norm(t[m], axis=-1) + 1e-8)
+        scores[order] = float((num / den).mean())
+    best = max(scores, key=scores.get)
+    return best, scores
+
+
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
     import torch
     payload = torch.load(path, map_location="cpu", weights_only=False)
     sd = payload.get("state_dict", payload)
     return {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
             for k, v in sd.items()}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Convert a reference (MinkowskiEngine) checkpoint to the "
+                    "port's MinkUNet state_dict")
+    ap.add_argument("src")
+    ap.add_argument("dst")
+    ap.add_argument("--arch", default="MinkUNet18A")
+    ap.add_argument("--out_channels", type=int, default=768)
+    ap.add_argument("--region_order", default="x_fastest",
+                    choices=REGION_ORDERS)
+    ap.add_argument("--probe_scene", default="",
+                    help="scene .npz + its fused-feature .npz "
+                         "(comma-separated) to pick region_order empirically")
+    ap.add_argument("--device", default=None,
+                    help="the probe's device (default cuda)")
+    args = ap.parse_args(argv)
+    import torch
+
+    from ..models.sparse_unet import MinkUNet
+    sd = load_torch_checkpoint(args.src)
+    region_order = args.region_order
+    if args.probe_scene:
+        from ..data.scene_io import load_fused_features, load_scene
+        scene_path, feat_path = args.probe_scene.split(",")
+        coords, _, _ = load_scene(scene_path)
+        blob = load_fused_features(feat_path)
+        feat, mask_full = blob["feat"], blob["mask_full"]
+        full = np.zeros((len(coords), feat.shape[1]), np.float32)
+        full[mask_full] = feat.astype(np.float32)
+        region_order, scores = probe_region_order(
+            sd, args.arch, coords, full, mask_full, device=args.device)
+        print(f"probe scores {scores} -> region_order={region_order}")
+    state_dict, dim = _port_state_dict(sd, args.arch, region_order)
+    if dim != args.out_channels:
+        raise ValueError(f"the checkpoint's head is {dim}-d, "
+                         f"--out_channels {args.out_channels}")
+    # validate against a freshly built model of the same arch
+    MinkUNet(3, args.out_channels, args.arch).load_state_dict(state_dict)
+    torch.save({"epoch": 0, "model": state_dict, "best_iou": 0.0}, args.dst)
+    print("wrote", args.dst)
+
+
+if __name__ == "__main__":
+    main()

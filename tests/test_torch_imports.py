@@ -76,7 +76,8 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                 "fusion.fuse", "fusion.datasets", "fusion.run_fusion",
                 "utils.ply", "preprocess.point_clouds",
                 "preprocess.scannet_2d", "parallel.mesh", "parallel.launch",
-                "data.sharded"):
+                "data.sharded", "parallel.spatial", "models.resnet",
+                "utils.viz", "utils.profiling", "utils.convert_checkpoint"):
         assert "openscene_tpu_torch." + mod in names
 
 
@@ -116,6 +117,26 @@ def test_evaluator_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="not available"):
         ZeroShotEvaluator(Config(feature_type="fusion"),
                           text_features=np.eye(20, 8, dtype=np.float32))
+
+
+def test_checkpoint_fetch_builds_no_cpu_model(monkeypatch):
+    """A checkpoint URL in ``model_path``: ``load_model_for_eval`` asks for
+    CUDA before it builds the model or fetches anything, and raises
+    without CUDA instead of evaluating on the CPU."""
+    import urllib.request
+    from openscene_tpu_torch.config import Config
+    from openscene_tpu_torch.runtime import evaluate
+
+    def fetch(*a, **kw):
+        raise AssertionError("fetched before the device was resolved")
+    monkeypatch.setattr(urllib.request, "urlretrieve", fetch)
+    monkeypatch.setattr(evaluate, "fetch_checkpoint", fetch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(feature_type="distill", arch_3d="MinkUNet14A",
+                 model_path="https://example.invalid/model.pth")
+    with pytest.raises(RuntimeError, match="not available"):
+        evaluate.load_model_for_eval(cfg)
+    assert not torch.cuda.is_initialized()
 
 
 def test_fusion_defaults_to_cuda(monkeypatch, tmp_path):
@@ -167,6 +188,54 @@ def test_wrapper_never_falls_back_off_cpu(wrapper, K):
     with pytest.raises(ValueError, match="CUDA tensor"):
         wrapper(x, w, plan)
     assert wrapper.launches == 0
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_spatial_wrappers_never_fall_back_off_cpu(which):
+    from types import SimpleNamespace
+    from openscene_tpu_torch.parallel import spatial
+
+    def meta(shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    plan = SimpleNamespace(fwd=meta((27, 64), torch.int32),
+                           bwd=meta((27, 72), torch.int32), fwd_skip=None,
+                           bwd_skip=None)
+    w = torch.empty((27, 32, 32), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if which == "fwd":
+            spatial.spatial_conv_fwd(meta((72, 32)), w, plan)
+        else:
+            spatial.spatial_conv_bwd(meta((72, 32)), w, meta((64, 32)), plan)
+    assert (spatial.spatial_conv_fwd.launches
+            == spatial.spatial_conv_bwd.launches == 0)
+
+
+@pytest.mark.parametrize("requested", [None, "cuda"])
+def test_spatial_conv_defaults_to_cuda(monkeypatch, tmp_path, requested):
+    """``make_spatial_conv`` resolves its device as the entry points do: in
+    a one-rank gloo group without CUDA it raises instead of building the
+    plan on the CPU; without a process group it raises too."""
+    import torch.distributed as dist
+    from openscene_tpu_torch.parallel.spatial import (build_spatial_shards,
+                                                      make_spatial_conv)
+    coords = np.zeros((4, 4), np.int32)
+    coords[:, 1] = np.arange(4)
+    shards = build_spatial_shards(coords, 1)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_spatial_conv(None, shards, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="not available"):
+            make_spatial_conv(None, shards, device=requested)
+        f = make_spatial_conv(None, shards, device="cpu")
+        assert f.plan.fwd.device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+    assert not torch.cuda.is_initialized()
 
 
 @pytest.mark.parametrize("entry", ["train_seg", "eval_seg"])
