@@ -161,13 +161,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    legends), ``_epoch_end_viz`` on the train phase's last batch (three
    PLYs), and one distill train step inside ``utils/profiling.trace``
    (the trace names the gather-GEMM kernels and the ``annotate`` region);
-12. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
+12. drives the reference-checkpoint drill
+   (``scripts/eval_reference_checkpoint.py``) at MinkUNet18A 768-d on the
+   2 val scenes: a random MinkowskiEngine-format checkpoint written as a
+   ``.pth.tar`` with ``module.`` prefixes; for each kernel region order a
+   drill root (links to the smoke tree) whose val scene 0 blob is the
+   converted model's own output under that order, where the probe
+   (``probe_region_order``, two forwards on the card) must pick that order
+   by at least the default margin 0.05; the drill's command line as a
+   subprocess on the card over distill, ensemble and fusion, whose probe
+   must pick ``x_fastest`` and whose mIoU table must be bit-equal to a
+   direct ``ZeroShotEvaluator`` run with the order pinned and the same
+   ``model_path``; ``main`` under a ``--min-margin`` above the achieved
+   margin must exit nonzero after the probe alone.  32 / 4 / 4 launches of
+   rows 1, 3 and 5 per forward around the probes, the direct run and the
+   gate; the probe's wall ms and each mode's voxels/s;
+13. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
    train batch with few iterations: each up conv forward and
    forward+backward by the model's route against the dense route;
-13. prints the eval, train, hostmem, seg, dist, fusion, spatial, resnet and
-   exports summaries, the card line, one ``{"kernels": [...]}`` JSON line
-   (each kernel's launches on the main paths, the spatial and ResNet paths
-   included), and last ``{"ok": true, "device": {...}}``.
+14. prints the eval, train, hostmem, seg, dist, fusion, spatial, resnet,
+   exports and drill summaries, the card line, one ``{"kernels": [...]}``
+   JSON line (each kernel's launches on the main paths, the spatial,
+   ResNet and drill paths included), and last ``{"ok": true, "device":
+   {...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It also exits non-zero when CUDA is unavailable, or when the port's
@@ -2911,6 +2927,312 @@ def exports_phase(trainer, batch, d3, dfeat, card, device):
     return out
 
 
+DRILL_CONFIG = os.path.join("configs", "synthetic", "smoke.yaml")
+DRILL_MODES = ("distill", "ensemble", "fusion")
+DRILL_MIN_MARGIN = 0.05     # the drill's default --min-margin
+DRILL_SEED = 11
+DRILL_TIMEOUT = 300         # seconds for the drill's command line
+DRILL_LAUNCHES = {"stencil_conv_fwd": STENCILS_PER_FORWARD,
+                  "down_conv_fwd": DOWNS_PER_FORWARD,
+                  "up_conv_fwd": UPS_PER_FORWARD}
+
+
+def me_state_dict(arch, cout, seed):
+    """A random reference checkpoint's state dict of ``arch`` (basic
+    blocks): MinkowskiEngine's names, (K, Cin, Cout) kernels in its region
+    order, 1x1 kernels (Cin, Cout), BatchNorm as ``bn.weight/bias/
+    running_mean/running_var``, ``layers`` blocks a stage (the writer of
+    ``tests/test_unet_golden_parity.py:_me_state_dict``, one block a stage,
+    generalised, with its scales)."""
+    import numpy as np
+    from openscene_tpu_torch.models.sparse_unet import ARCHS
+    a = ARCHS[arch]
+    if a.block != "basic":
+        raise ValueError(f"{arch}: only basic blocks are written")
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, K, cin, cout):
+        sd[name + ".kernel"] = (rng.standard_normal((K, cin, cout))
+                                * (2.0 / np.sqrt(K * cin))).astype(np.float32)
+
+    def conv1(name, cin, cout):
+        sd[name + ".kernel"] = (rng.standard_normal((cin, cout))
+                                / np.sqrt(cin)).astype(np.float32)
+
+    def bn(name, c):
+        sd[name + ".bn.weight"] = (0.5 + rng.random(c)).astype(np.float32)
+        sd[name + ".bn.bias"] = (0.2 * rng.standard_normal(c)).astype(
+            np.float32)
+        sd[name + ".bn.running_mean"] = (0.1 * rng.standard_normal(c)).astype(
+            np.float32)
+        sd[name + ".bn.running_var"] = (0.5 + rng.random(c)).astype(
+            np.float32)
+
+    def stage(b, cin, planes):
+        for j in range(a.layers[b - 1]):
+            prefix = f"block{b}.{j}"
+            conv(prefix + ".conv1", 27, cin, planes)
+            bn(prefix + ".norm1", planes)
+            conv(prefix + ".conv2", 27, planes, planes)
+            bn(prefix + ".norm2", planes)
+            if cin != planes:
+                conv1(prefix + ".downsample.0", cin, planes)
+                bn(prefix + ".downsample.1", planes)
+            cin = planes
+        return planes
+
+    conv("conv0p1s1", 125, 3, a.init_dim)
+    bn("bn0", a.init_dim)
+    inplanes = a.init_dim
+    enc_out = [a.init_dim]
+    for i in range(1, 5):
+        conv(f"conv{i}p{2 ** (i - 1)}s2", 8, inplanes, inplanes)
+        bn(f"bn{i}", inplanes)
+        inplanes = stage(i, inplanes, a.planes[i - 1])
+        enc_out.append(inplanes)
+    for j, i in enumerate(range(4, 8)):
+        conv(f"convtr{i}p{2 ** (8 - i)}s2", 8, inplanes, a.planes[i])
+        bn(f"bntr{i}", a.planes[i])
+        inplanes = stage(i + 1, a.planes[i] + enc_out[3 - j], a.planes[i])
+    conv1("final", inplanes, cout)
+    return sd
+
+
+def drill_teachers(sd, points, device):
+    """The converted checkpoint's own output under each region order at
+    every point of the probe scene: voxelized and run as
+    ``probe_region_order`` runs it (one point per voxel, constant bf16
+    input, on the card), each point taking its voxel's row.  Rows scaled to
+    unit length: the probe's cosine does not see the scale, and raw outputs
+    could overflow fp16 blobs.  Returns ``{order: (points, DIM) fp32}``."""
+    import numpy as np
+    import torch
+    from openscene_tpu_torch.data.batch import assemble_distill_batch
+    from openscene_tpu_torch.data.loaders import SceneSample
+    from openscene_tpu_torch.models.sparse_unet import MinkUNet
+    from openscene_tpu_torch.sparse.geometry import geometry_to_device
+    from openscene_tpu_torch.utils.convert_checkpoint import (REGION_ORDERS,
+                                                              _port_state_dict)
+    coords = np.floor(points / VOXEL).astype(np.int32)
+    coords -= coords.min(0)
+    keys = (coords[:, 0].astype(np.int64) * 2 ** 42
+            + coords[:, 1].astype(np.int64) * 2 ** 21 + coords[:, 2])
+    _, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    n = len(first)
+    sample = SceneSample(coords=coords[first],
+                         feats=np.ones((n, 3), np.float32),
+                         labels=np.zeros(n, np.int64), inds_reconstruct=None,
+                         feat_3d=np.zeros((0, 1), np.float16),
+                         feat_mask=np.zeros(n, bool))
+    batch = assemble_distill_batch([sample], 1, rng=np.random.default_rng(0),
+                                   shift=False)
+    if not np.array_equal(batch.geo.levels[0].coords[:n, 1:], coords[first]):
+        raise AssertionError("drill teacher: rows not in the probe's order")
+    geo = geometry_to_device(batch.geo, device)
+    x = torch.as_tensor(batch.feats, device=device).to(torch.bfloat16)
+    out = {}
+    for order in REGION_ORDERS:
+        model = MinkUNet(3, DIM, ARCH)
+        model.load_state_dict(_port_state_dict(sd, ARCH, order)[0])
+        model.to(device).eval()
+        with torch.no_grad():
+            y = torch.nn.functional.normalize(
+                model(x, geo, constant_input=True).float()[:n], dim=1)
+        if not bool(y.isfinite().all()):
+            raise AssertionError(f"drill teacher ({order}): not finite")
+        out[order] = y.cpu().numpy()[inv]
+    return out
+
+
+def drill_overrides(root):
+    """The drill's ``key value`` overrides of ``configs/synthetic/smoke.yaml``
+    for a drill root, at bench density; the text embeddings from the root's
+    ``text.npy``, as a real drill reads CLIP's from a file."""
+    return ("data_root", os.path.join(root, "scannet_3d"),
+            "data_root_2d_fused_feature",
+            os.path.join(root, "scannet_multiview"), "voxel_size", str(VOXEL),
+            "arch_3d", ARCH, "embedding_file", os.path.join(root, "text.npy"))
+
+
+def drill_root(d3, dfeat, name, scene_id, feat, mask):
+    """``build/drill/<name>``: symbolic links to the smoke tree's scenes and
+    to every fused blob but the probe scene's, which is written anew from
+    ``feat`` (the smoke tree itself stays as the other phases read it), and
+    the 20 class prototypes as ``text.npy``.  The blob is written without
+    compression: zlib takes seconds over 768-d rows of a scene."""
+    import numpy as np
+    from openscene_tpu_torch.data.synthetic import class_prototypes
+    root = os.path.join(HERE, "build", "drill", name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "scannet_multiview"))
+    np.save(os.path.join(root, "text.npy"), class_prototypes(CLASSES, DIM))
+    os.symlink(d3, os.path.join(root, "scannet_3d"))
+    for f in sorted(os.listdir(dfeat)):
+        if not f.startswith(scene_id):
+            os.symlink(os.path.join(dfeat, f),
+                       os.path.join(root, "scannet_multiview", f))
+    np.savez(os.path.join(root, "scannet_multiview", f"{scene_id}_0.npz"),
+             feat=feat.astype(np.float16), mask_full=mask)
+    return root
+
+
+def drill_phase(d3, dfeat, n_voxels, card, device):
+    """The reference-checkpoint drill (``scripts/eval_reference_checkpoint``)
+    at MinkUNet18A 768-d on the smoke tree's val scenes at bench density.
+    A random MinkowskiEngine-format checkpoint (``module.`` prefixes) is
+    written; for each region order a drill root gets a probe-scene blob
+    made of the converted model's own output under that order, and the
+    probe (``probe_region_order`` on the card) must pick that order by at
+    least the default margin.  The drill's command line then runs as a
+    subprocess on the card over distill, ensemble and fusion: its order
+    must be ``x_fastest`` and every mode's mIoU bit-equal to a direct
+    ``ZeroShotEvaluator`` run here with the order pinned and the same
+    ``model_path``.  ``main`` under a ``--min-margin`` above the margin
+    must exit nonzero after the probe alone.  Launches are counted around
+    the probes, the direct run and the gate: 32 / 4 / 4 of rows 1, 3 and
+    5 per forward.  Returns ``(launches, summary)``."""
+    import numpy as np
+    import torch
+    from openscene_tpu_torch.config import load_config
+    from openscene_tpu_torch.data.scene_io import (list_scenes,
+                                                   load_fused_features,
+                                                   load_scene, scene_name)
+    from openscene_tpu_torch.runtime.evaluate import (ZeroShotEvaluator,
+                                                      load_model_for_eval)
+    from openscene_tpu_torch.scripts import eval_reference_checkpoint as drill
+    from openscene_tpu_torch.utils.convert_checkpoint import (
+        load_torch_checkpoint, probe_region_order)
+    t_phase = time.time()
+    out = {}
+    base = os.path.join(HERE, "build", "drill")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    ckpt = os.path.join(base, f"ref_{ARCH.lower()}.pth.tar")
+    sd = me_state_dict(ARCH, DIM, DRILL_SEED)
+    torch.save({"state_dict": {"module." + k: torch.from_numpy(v)
+                               for k, v in sd.items()}, "epoch": 0}, ckpt)
+    scene = list_scenes(d3, "val")[0]
+    scene_id = scene_name(scene, d3)
+    points = load_scene(scene)[0]
+    mask = load_fused_features(os.path.join(dfeat, f"{scene_id}_0.npz")
+                               )["mask_full"].astype(bool)
+    roots = {o: drill_root(d3, dfeat, o, scene_id, feat[mask], mask)
+             for o, feat in drill_teachers(sd, points, device).items()}
+    launches = {}
+    sd = load_torch_checkpoint(ckpt)  # what the drill reads
+
+    # the probe on each root: it must find the order that made the teacher
+    zero_counts()
+    probe = {}
+    for made, root in roots.items():
+        cfg = load_config(DRILL_CONFIG, drill_overrides(root))
+        coords, full, fmask = drill._probe_inputs(cfg)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        best, scores = probe_region_order(sd, ARCH, coords, full, fmask,
+                                          voxel_size=VOXEL, device=device)
+        ms = (time.time() - t0) * 1e3
+        margin = max(scores.values()) - min(scores.values())
+        probe[made] = {"picked": best, "scores": scores, "margin": margin,
+                       "ms": ms}
+        print(f"drill probe (teacher made under {made}): {len(points)} "
+              f"points, scores {scores} -> {best}, margin {margin:.4f}, "
+              f"{ms:.1f} ms wall (2 conversions, 2 forwards) [{card}]",
+              flush=True)
+        if best != made or margin < DRILL_MIN_MARGIN:
+            raise AssertionError(f"drill probe: teacher {made} gave {best} "
+                                 f"by {margin:.4f}")
+    launches["probe"] = read_counts()
+    want = expected({k: v * 2 * len(roots) for k, v in DRILL_LAUNCHES.items()})
+    if launches["probe"] != want:
+        raise AssertionError(f"drill probe: launches {launches['probe']}, "
+                             f"want {want}")
+    out["probe"] = probe
+
+    # the direct evaluator run: the x_fastest root, the order pinned
+    cfg = load_config(DRILL_CONFIG, drill_overrides(roots["x_fastest"])
+                      ).copy(model_path=ckpt, region_order="x_fastest")
+    zero_counts()
+    model = load_model_for_eval(cfg.copy(feature_type="distill"), device)
+    direct, rates = {}, {}
+    for mode in DRILL_MODES:
+        ev = ZeroShotEvaluator(cfg.copy(feature_type=mode),
+                               None if mode == "fusion" else model,
+                               device=device)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        direct[mode] = ev.run()["miou"]
+        torch.cuda.synchronize()
+        rates[mode] = n_voxels / (time.time() - t0)
+        print(f"drill eval {mode} (direct, region_order x_fastest): "
+              f"{N_SCENES} scenes, {n_voxels} voxels, {rates[mode]:.1f} "
+              f"voxels/s, mIoU {direct[mode]!r} (random weights, the "
+              f"class prototypes as text) [{card}]", flush=True)
+    launches["eval"] = read_counts()
+    forwards = N_SCENES * sum(m != "fusion" for m in DRILL_MODES)
+    want = expected({k: v * forwards for k, v in DRILL_LAUNCHES.items()})
+    if launches["eval"] != want:
+        raise AssertionError(f"drill eval: launches {launches['eval']}, "
+                             f"want {want}")
+    if not all(np.isfinite(v) for v in direct.values()):
+        raise AssertionError(f"drill eval: mIoU {direct}")
+    del model, ev
+    out["eval"] = {"miou": direct, "voxels_per_s": rates}
+
+    # the drill's command line, on the card in a process of its own
+    cmd = [sys.executable, "-m",
+           "openscene_tpu_torch.scripts.eval_reference_checkpoint", ckpt,
+           "--config", DRILL_CONFIG, "--modes", ",".join(DRILL_MODES),
+           "--device", str(device), *drill_overrides(roots["x_fastest"])]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=DRILL_TIMEOUT)
+    t_cli = time.time() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if line.strip():
+            print(f"drill cli: {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"drill cli exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    probe_line = next(ln for ln in lines if ln.startswith(
+        "# region-order probe: "))
+    table = json.loads(next(ln for ln in lines if ln.startswith(
+        "# exact mIoU: "))[len("# exact mIoU: "):])
+    print(f"drill cli: {t_cli:.1f}s wall, a process of its own (startup "
+          f"and probe included); table bit-equal to the direct run: "
+          f"{table == direct} [{card}]", flush=True)
+    if "-> x_fastest " not in probe_line or table != direct:
+        raise AssertionError(f"drill cli: {probe_line!r}, table {table} "
+                             f"against the direct run's {direct}")
+    out["cli"] = {"seconds": t_cli, "table": table}
+
+    # the margin gate: above the achieved margin the drill refuses
+    high = probe["x_fastest"]["margin"] + 0.01
+    zero_counts()
+    try:
+        drill.main([ckpt, "--config", DRILL_CONFIG, "--modes", "distill",
+                    "--min-margin", f"{high:.6f}", "--device", str(device),
+                    *drill_overrides(roots["x_fastest"])])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    launches["gate"] = read_counts()
+    print(f"drill gate (--min-margin {high:.4f}): exit {code!r}, launches "
+          f"{ {k: launches['gate'][k] for k in DRILL_LAUNCHES} } [{card}]",
+          flush=True)
+    want = expected({k: v * 2 for k, v in DRILL_LAUNCHES.items()})
+    if code in (0, None) or launches["gate"] != want:
+        raise AssertionError("drill gate: did not stop after the probe")
+    out["gate"] = {"exit": str(code)}
+    out["forwards"] = {"probe": 2 * len(roots), "eval": forwards, "gate": 2}
+    dt = time.time() - t_phase
+    out["seconds"] = dt
+    print(f"drill phase: {dt:.1f}s wall [{card}]", flush=True)
+    return launches, out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3149,7 +3471,13 @@ def main():
     for k in launches:
         launches[k] += resnet_launches[k]
 
-    # ---- 9. the per-op benchmark on the train batch ----
+    # ---- 9. the reference-checkpoint drill at full width ----
+    drill_launches, drill_stats = drill_phase(d3, dfeat, n_voxels, card,
+                                              device)
+    for k in launches:
+        launches[k] += sum(c[k] for c in drill_launches.values())
+
+    # ---- 10. the per-op benchmark on the train batch ----
     t0 = time.time()
     bench = bench_ops(praw.coords, int(praw.num), n_scenes=TRAIN_BATCH,
                       iters=BENCH_ITERS)
@@ -3162,7 +3490,7 @@ def main():
             raise AssertionError(f"{k} was not launched on its main path")
         launches[k] += n
 
-    # ---- 10. report ----
+    # ---- 11. report ----
     kernels = []
     for name, shapes in cases.items():
         main_shape = shapes[0]
@@ -3177,6 +3505,8 @@ def main():
             "library_ms": main_shape["library_ms"],
             "dist_rank_launches": dist_launches[name],
             "resnet_launches": resnet_launches[name],
+            "drill_launches": {part: c[name]
+                               for part, c in drill_launches.items()},
             "shapes": shapes}
         sp = {"stencil_conv_fwd": "spatial_conv_fwd",
               "stencil_conv_bwd": "spatial_conv_bwd"}.get(name)
@@ -3203,6 +3533,7 @@ def main():
     print(f"spatial: {json.dumps(spatial_stats)}", flush=True)
     print(f"resnet: {json.dumps(resnet_stats)}", flush=True)
     print(f"exports: {json.dumps(exports_stats)}", flush=True)
+    print(f"drill: {json.dumps(drill_stats)}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

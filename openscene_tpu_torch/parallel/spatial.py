@@ -56,7 +56,7 @@ are its send lists.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -462,26 +462,24 @@ class SpatialConv(torch.autograd.Function):
         return dx, dw.to(w.dtype), None, None
 
 
-def make_spatial_conv(group, shards: SpatialShards, rank: Optional[int] = None,
-                      device=None):
+def make_spatial_conv(group, shards: SpatialShards, device=None):
     """This rank's spatially sharded stencil conv: ``f(x_shard, w) ->
     y_shard`` with ``x_shard`` (cap_d, Cin) on ``device`` and ``w`` (K,
     Cin, Cout) the same on every rank.  ``group``: the initialised process
     group of the D ranks (None: the default group; one rank is a group of
-    one), ``rank``: this rank's shard (its rank in ``group`` by default).
-    ``device`` resolves as every entry point's does (``cuda``, this
-    process's card, unless the caller asks for the CPU; raises without
-    CUDA).  Differentiable: the backward returns the halo cotangents to
-    their owners and sums ``dW`` over the group."""
+    one).  This rank's shard is its rank in ``group``: NCCL's gather
+    places each rank's export rows by that rank.  ``device`` resolves as
+    every entry point's does (``cuda``, this process's card, unless the
+    caller asks for the CPU; raises without CUDA).  Differentiable: the
+    backward returns the halo cotangents to their owners and sums ``dW``
+    over the group."""
     if not dist.is_initialized():
         raise RuntimeError("make_spatial_conv needs an initialised process "
                            "group (torchrun, or parallel.launch.spawn)")
     if dist.get_world_size(group) != shards.n_shards:
         raise ValueError(f"{shards.n_shards} shards over a group of "
                          f"{dist.get_world_size(group)} ranks")
-    if rank is None:
-        rank = dist.get_rank(group)
-    plan = shard_plan(shards, rank, resolve_device(device))
+    plan = shard_plan(shards, dist.get_rank(group), resolve_device(device))
 
     def f(x_shard: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return SpatialConv.apply(x_shard, w, plan, group)

@@ -158,7 +158,8 @@ def probe_region_order(sd: Dict[str, np.ndarray], arch: str,
     Converts the checkpoint under BOTH candidate orders and measures the
     distill objective (mean cosine similarity between model output and the
     scene's fused 2D features) on one real scene, in bf16 with the constant
-    input on ``device`` (``cuda`` by default).  A trained model only aligns
+    input on ``device`` (``cuda`` by default), the cosines' products there
+    too.  A trained model only aligns
     with its targets under the correct order: the wrong order spatially
     scrambles every 27-tap kernel.  Returns ``(best_order, {order:
     mean_cos})``."""
@@ -189,6 +190,12 @@ def probe_region_order(sd: Dict[str, np.ndarray], arch: str,
     geo = geometry_to_device(batch.geo, dev)
     x = torch.as_tensor(batch.feats, device=dev).to(torch.bfloat16)
 
+    m = batch.mask > 0
+    # the targets' norms in fp16 on the host, as the JAX package takes them;
+    # the products with the (rows, C) outputs on the device
+    t_norm = np.linalg.norm(batch.feat_3d[m], axis=-1)
+    rows = torch.as_tensor(np.flatnonzero(m), device=dev)
+    t = torch.as_tensor(batch.feat_3d[m], device=dev).float()
     scores = {}
     for order in REGION_ORDERS:
         state_dict, dim = _port_state_dict(sd, arch, order)
@@ -196,15 +203,26 @@ def probe_region_order(sd: Dict[str, np.ndarray], arch: str,
         model.load_state_dict(state_dict)
         model.to(dev).eval()
         with torch.no_grad():
-            out = model(x, geo, constant_input=True).float().cpu().numpy()
-        t = batch.feat_3d
-        m = batch.mask > 0
-        num = (out[m] * t[m]).sum(-1)
-        den = (np.linalg.norm(out[m], axis=-1)
-               * np.linalg.norm(t[m], axis=-1) + 1e-8)
-        scores[order] = float((num / den).mean())
+            out = model(x, geo, constant_input=True).float()[rows]
+            num = (out * t).sum(-1).cpu().numpy()
+            out_norm = torch.linalg.vector_norm(out, dim=-1).cpu().numpy()
+        scores[order] = float((num / (out_norm * t_norm + 1e-8)).mean())
     best = max(scores, key=scores.get)
     return best, scores
+
+
+def load_probe_scene(scene_path: str, fused_path: str):
+    """``(coords, feat_3d, mask)`` of a probe scene: the scene file's point
+    coordinates, and its fused-feature blob (``{"feat", "mask_full"}``)
+    scattered to one fp32 row per point, zero where ``mask_full`` is off;
+    the inputs of :func:`probe_region_order`."""
+    from ..data.scene_io import load_fused_features, load_scene
+    coords, _, _ = load_scene(scene_path)
+    blob = load_fused_features(fused_path)
+    feat, mask_full = blob["feat"], blob["mask_full"].astype(bool)
+    full = np.zeros((len(coords), feat.shape[1]), np.float32)
+    full[mask_full] = feat.astype(np.float32)
+    return coords, full, mask_full
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -237,13 +255,8 @@ def main(argv=None):
     sd = load_torch_checkpoint(args.src)
     region_order = args.region_order
     if args.probe_scene:
-        from ..data.scene_io import load_fused_features, load_scene
-        scene_path, feat_path = args.probe_scene.split(",")
-        coords, _, _ = load_scene(scene_path)
-        blob = load_fused_features(feat_path)
-        feat, mask_full = blob["feat"], blob["mask_full"]
-        full = np.zeros((len(coords), feat.shape[1]), np.float32)
-        full[mask_full] = feat.astype(np.float32)
+        coords, full, mask_full = load_probe_scene(
+            *args.probe_scene.split(","))
         region_order, scores = probe_region_order(
             sd, args.arch, coords, full, mask_full, device=args.device)
         print(f"probe scores {scores} -> region_order={region_order}")

@@ -77,7 +77,9 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                 "utils.ply", "preprocess.point_clouds",
                 "preprocess.scannet_2d", "parallel.mesh", "parallel.launch",
                 "data.sharded", "parallel.spatial", "models.resnet",
-                "utils.viz", "utils.profiling", "utils.convert_checkpoint"):
+                "utils.viz", "utils.profiling", "utils.convert_checkpoint",
+                "scripts.eval_reference_checkpoint",
+                "scripts.decide_region_order", "scripts.make_synthetic_data"):
         assert "openscene_tpu_torch." + mod in names
 
 
@@ -235,6 +237,49 @@ def test_spatial_conv_defaults_to_cuda(monkeypatch, tmp_path, requested):
         assert f.plan.fwd.device == torch.device("cpu")
     finally:
         dist.destroy_process_group()
+    assert not torch.cuda.is_initialized()
+
+
+def test_spatial_conv_shard_is_group_rank(tmp_path):
+    """The spatial conv's shard is always the caller's rank in its group
+    (NCCL's gather places each export by that rank): ``make_spatial_conv``
+    takes no ``rank``, and its plan is the group rank's."""
+    import inspect
+    import torch.distributed as dist
+    from openscene_tpu_torch.parallel.spatial import (build_spatial_shards,
+                                                      make_spatial_conv)
+    assert "rank" not in inspect.signature(make_spatial_conv).parameters
+    coords = np.zeros((4, 4), np.int32)
+    coords[:, 1] = np.arange(4)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        group = dist.new_group([0])
+        f = make_spatial_conv(group, build_spatial_shards(coords, 1),
+                              device="cpu")
+        assert f.plan.rank == dist.get_rank(group) == 0 and f.group is group
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("command", ["drill", "decide_region_order"])
+def test_drill_commands_default_to_cuda(monkeypatch, tmp_path, command):
+    """The checkpoint drill and the region-order decision resolve their
+    device before they read anything: without CUDA they raise instead of
+    probing or evaluating on the CPU."""
+    from openscene_tpu_torch.config import Config
+    from openscene_tpu_torch.scripts import decide_region_order
+    from openscene_tpu_torch.scripts.eval_reference_checkpoint import \
+        run_drill
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="not available"):
+        if command == "drill":
+            run_drill(missing + ".pth.tar", Config(data_root=missing),
+                      ["distill"])
+        else:
+            decide_region_order.main([missing + ".pth.tar",
+                                      missing + ".npz", missing + "_f.npz"])
     assert not torch.cuda.is_initialized()
 
 
