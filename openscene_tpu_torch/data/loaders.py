@@ -26,6 +26,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
 from . import augment as t
 from .scene_io import (list_scenes, load_fused_features, load_scene,
                        scene_name)
@@ -225,24 +226,30 @@ class FusedFeatureLoader(Point3DLoader):
     def get(self, index_long: int) -> SceneSample:
         index = index_long % len(self.data_paths)
         rng = self._rng_for(index_long)
-        locs_in, feats_in, labels_in = self._load_raw(index)
-        feat_3d, mask_full = self._load_feat_blob(index, rng)
+        with span("loader.read"):
+            locs_in, feats_in, labels_in = self._load_raw(index)
+            feat_3d, mask_full = self._load_feat_blob(index, rng)
 
         locs = self.prevoxel_transforms(locs_in) if self.aug else locs_in
         if self.split == "train":
             locs, feats, labels, inds_rec, vox_ind = self.voxelizer.voxelize(
                 locs_in, feats_in, labels_in, return_ind=True, rng=rng)
-            feat_mask, feat_rows = align_fused_features(mask_full, vox_ind)
-            feat_3d = feat_3d[feat_rows]
+            with span("loader.scatter"):
+                feat_mask, feat_rows = align_fused_features(mask_full,
+                                                            vox_ind)
+                feat_3d = feat_3d[feat_rows]
         else:
             # val/test: scatter features to the full cloud, evaluate all
             # points (feature_loader.py:109-113,167-172)
-            full = np.zeros((len(locs_in), feat_3d.shape[1]), dtype=feat_3d.dtype)
-            full[mask_full] = feat_3d
+            with span("loader.scatter"):
+                full = np.zeros((len(locs_in), feat_3d.shape[1]),
+                                dtype=feat_3d.dtype)
+                full[mask_full] = feat_3d
             locs, feats, labels, inds_rec, vox_ind = self.voxelizer.voxelize(
                 locs, feats_in, labels_in, return_ind=True, rng=rng)
-            feat_3d = full[vox_ind]
-            feat_mask = mask_full[vox_ind]
+            with span("loader.scatter"):
+                feat_3d = full[vox_ind]
+                feat_mask = mask_full[vox_ind]
         if self.eval_all:
             labels = labels_in
         if self.aug:

@@ -13,6 +13,8 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
 
+from ..utils.profiling import span
+
 
 class Prefetcher:
     """Pull items from ``make_item(i)`` for i in ``indices``, ``workers``
@@ -67,7 +69,7 @@ class Prefetcher:
                                "for multiple passes")
         self._consumed = True
         for i in range(len(self.indices)):
-            with self.cond:
+            with span("prefetch.wait"), self.cond:
                 while i not in self.results and self.error is None:
                     self.cond.wait()
                 if self.error is not None:

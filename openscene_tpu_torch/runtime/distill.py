@@ -81,6 +81,7 @@ from ..sparse.geometry_device import build_geometry_parts, with_host_counts
 from ..sparse.types import UNetGeometry
 from ..sparse.ops import matmul_f32
 from ..text import extract_text_features
+from ..utils.profiling import span
 from ..utils.train_utils import (AverageMeter, ScalarWriter, get_logger,
                                  read_checkpoint, save_checkpoint)
 
@@ -228,17 +229,20 @@ class TrainStep:
         """One update on a batch whose geometry is on the device."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_on(geo, *parts)
-        loss.backward()
-        if self.mesh is not None:
-            average_gradients(list(self.model.parameters()), self.mesh)
-        lr = self.schedule(self.it)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        if self.mesh is not None:
-            average_buffers(self.model, self.mesh)
-            loss = mean_over_data(loss, self.mesh)
+        with span("train.forward"):
+            loss = self.loss_on(geo, *parts)
+        with span("train.backward"):
+            loss.backward()
+            if self.mesh is not None:
+                average_gradients(list(self.model.parameters()), self.mesh)
+        with span("train.optimizer"):
+            lr = self.schedule(self.it)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            if self.mesh is not None:
+                average_buffers(self.model, self.mesh)
+                loss = mean_over_data(loss, self.mesh)
         self.it += 1
         return loss.detach()
 
@@ -270,10 +274,11 @@ class RawTrainStep:
     def geometry(self, raw: RawDistillBatch):
         """(geometry on the device with host level counts, overflow)."""
         dev = self.step.device
-        geo, overflow = build_geometry_parts(
-            torch.as_tensor(raw.coords, device=dev), int(raw.num), self.caps,
-            stem_occupancy=not self.step.cfg.input_color,
-            n_scenes=self.n_scenes, grid_dims0=self.grid_dims0)
+        with span("geometry.build"):
+            geo, overflow = build_geometry_parts(
+                torch.as_tensor(raw.coords, device=dev), int(raw.num),
+                self.caps, stem_occupancy=not self.step.cfg.input_color,
+                n_scenes=self.n_scenes, grid_dims0=self.grid_dims0)
         return with_host_counts(geo, overflow)
 
     def __call__(self, raw: RawDistillBatch):

@@ -75,6 +75,7 @@ from ..sparse.geometry import geometry_to_device
 from ..sparse.geometry_device import build_geometry_parts, with_host_counts
 from ..sparse.types import UNetGeometry
 from ..text import extract_text_features
+from ..utils.profiling import span
 from ..utils.train_utils import get_logger, read_checkpoint
 
 log = get_logger()
@@ -187,10 +188,11 @@ class SceneGeometry:
         """``(geometry with host level counts, overflow)`` of a padded
         level-0 batch for the level caps ``caps``; under overflow the plans
         are not valid."""
-        geo, overflow = build_geometry_parts(
-            torch.as_tensor(coords, device=self.device), int(num),
-            tuple(caps), stem_occupancy=not self.cfg.input_color,
-            n_scenes=1, grid_dims0=tuple(self.cfg.grid_dims0) or None)
+        with span("geometry.build"):
+            geo, overflow = build_geometry_parts(
+                torch.as_tensor(coords, device=self.device), int(num),
+                tuple(caps), stem_occupancy=not self.cfg.input_color,
+                n_scenes=1, grid_dims0=tuple(self.cfg.grid_dims0) or None)
         return with_host_counts(geo, overflow)
 
     def device_batch(self, assemble_raw, caps=None):
@@ -330,25 +332,26 @@ class ZeroShotEvaluator:
             if not self.is_main:  # rank 0 holds every scene's rows
                 continue
 
-            gt = np.concatenate(gts)
-            mask = np.concatenate(masks)
-            pred_logits = preds
-            if store is None:
-                store = [p.copy() for p in pred_logits]
-            elif rep > 0:
-                for s, p in zip(store, pred_logits):
-                    s += p
+            with span("eval.miou"):
+                gt = np.concatenate(gts)
+                mask = np.concatenate(masks)
+                pred_logits = preds
+                if store is None:
+                    store = [p.copy() for p in pred_logits]
+                elif rep > 0:
+                    for s, p in zip(store, pred_logits):
+                        s += p
 
-            cur = self._metric(np.concatenate(pred_logits), gt, mask)
-            results[f"repeat_{rep}"] = cur
-            if cfg.test_repeats > 1:
-                acc = self._metric(np.concatenate(store), gt, mask)
-                results["accumulated"] = acc
-                log.info("repeat %d mIoU=%.4f accumulated mIoU=%.4f",
-                         rep + 1, cur, acc)
-            else:
-                results["accumulated"] = cur
-                log.info("mIoU=%.4f", cur)
+                cur = self._metric(np.concatenate(pred_logits), gt, mask)
+                results[f"repeat_{rep}"] = cur
+                if cfg.test_repeats > 1:
+                    acc = self._metric(np.concatenate(store), gt, mask)
+                    results["accumulated"] = acc
+                    log.info("repeat %d mIoU=%.4f accumulated mIoU=%.4f",
+                             rep + 1, cur, acc)
+                else:
+                    results["accumulated"] = cur
+                    log.info("mIoU=%.4f", cur)
         if self.is_main:
             results["miou"] = results["accumulated"]
         if self.mesh is not None:
@@ -378,9 +381,10 @@ class ZeroShotEvaluator:
         for i, sample, out, n_pts in outputs:
             row = None
             if sample is not None:
-                logits = out[0][:n_pts].float().cpu().numpy()
-                pmask = out[1][:n_pts].cpu().numpy() > 0.5
-                label = np.asarray(sample.labels[:n_pts])
+                with span("eval.host_rows"):
+                    logits = out[0][:n_pts].float().cpu().numpy()
+                    pmask = out[1][:n_pts].cpu().numpy() > 0.5
+                    label = np.asarray(sample.labels[:n_pts])
                 if save_features_to:
                     # per-point FEATURE dump (reference run/evaluate.py:
                     # 302-331), saved before any nuScenes point subsetting,
@@ -458,17 +462,26 @@ class ZeroShotEvaluator:
         share_caps`), else the running caps."""
         need_model = self.mode != "fusion"
         need_fused = self.mode != "distill"
+
+        def assemble_raw(caps):
+            with span("eval.assemble"):
+                return assemble_raw_eval_batch([sample], self.dim, caps=caps,
+                                               need_fused=need_fused)
+
         if need_model:
-            hit = self.geometry.device_batch(
-                lambda caps: assemble_raw_eval_batch(
-                    [sample], self.dim, caps=caps, need_fused=need_fused),
-                caps)
+            hit = self.geometry.device_batch(assemble_raw, caps)
             if hit is not None:
                 raw, geo = hit
-                return step(self.model, self.text, raw, geo), raw.num_points
-        batch = assemble_eval_batch([sample], self.dim, need_model=need_model,
-                                    need_fused=need_fused)
-        return step(self.model, self.text, batch), batch.num_points
+                with span("eval.step"):
+                    out = step(self.model, self.text, raw, geo)
+                return out, raw.num_points
+        with span("eval.assemble"):
+            batch = assemble_eval_batch([sample], self.dim,
+                                        need_model=need_model,
+                                        need_fused=need_fused)
+        with span("eval.step"):
+            out = step(self.model, self.text, batch)
+        return out, batch.num_points
 
     def _metric(self, logits: np.ndarray, gt: np.ndarray,
                 mask: np.ndarray) -> float:

@@ -56,6 +56,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .edge_conv import with_edge_layouts
 from .stencil_conv import build_conv_skip
 from .types import (ConvPlan, DownPlan, LevelGeometry, UNetGeometry,
@@ -392,7 +393,9 @@ def with_host_counts(geo: UNetGeometry, overflow: torch.Tensor):
     as they are."""
     vals = torch.stack([overflow.to(torch.int64)]
                        + [torch.as_tensor(l.num).to(torch.int64)
-                          for l in geo.levels]).tolist()
+                          for l in geo.levels])
+    with span("geometry.wait"):
+        vals = vals.tolist()
     levels = tuple(LevelGeometry(coords=l.coords, num=int(n))
                    for l, n in zip(geo.levels, vals[1:]))
     return geo._replace(levels=levels), bool(vals[0])

@@ -1,4 +1,4 @@
-"""Profiling: ``torch.profiler`` traces and per-phase wall times.
+"""Profiling: ``torch.profiler`` traces and the program's own spans.
 
 Counterpart of ``openscene_tpu/utils/profiling.py``.  The reference's only
 perf observability is wall-clock data/batch meters with an ETA line
@@ -11,26 +11,93 @@ card:
             train_step(...)
 
 writes a Chrome trace (``chrome://tracing``, Perfetto) into the directory;
-``annotate`` labels a region inside it.  ``StepTimer`` gives a per-phase
-wall breakdown with a one-line report.
+``annotate`` labels a region inside it.
+
+``span(name)`` marks where the program's work happens (the loader's read
+and scatter, the prefetch queue's wait, the evaluator's assembly, the
+geometry launches and their wait, the forward, the backward and the
+optimizer).  Tracing is on exactly while a ``torch.profiler`` profile
+records, as inside ``trace``: then each span opens a ``record_function``
+range of its name and keeps ``(name, thread, t0, t1)`` host times
+(``time.perf_counter``) in a bounded buffer, which :func:`records` copies
+and :func:`clear` empties.  The on/off state is the profiler's own
+process-wide flag, so worker threads (the prefetch threads, which the
+profiler itself does not follow) record exactly when the thread that
+started the profile does.  Off, a span is one flag check and a shared null
+context.  No span waits for the device: spans time the host, and the
+device's time comes from the trace.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import threading
 import time
-from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Iterator, List, NamedTuple
 
 import torch
+import torch.autograd.profiler as _profiler
+
+# records kept at most: a long run under a profiler drops the oldest
+MAX_RECORDS = 1 << 16
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    thread: int      # threading.get_ident() of the thread that ran it
+    t0: float        # time.perf_counter() at the start
+    t1: float        # time.perf_counter() at the end
+
+
+_records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
+_lock = threading.Lock()
+_NULL = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _recording(name: str):
+    """A span that records: the host clock is read just outside its
+    ``record_function`` range's start and just inside its end."""
+    rng = torch.profiler.record_function(name)
+    t0 = time.perf_counter()
+    with rng:
+        try:
+            yield
+        finally:
+            rec = SpanRecord(name, threading.get_ident(), t0,
+                             time.perf_counter())
+            with _lock:
+                _records.append(rec)
+
+
+def span(name: str):
+    """A context manager marking one piece of the program's work: records
+    while a ``torch.profiler`` profile records, else the shared null
+    context."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    return _recording(name)
+
+
+def records() -> List[SpanRecord]:
+    """A copy of the recorded spans, oldest first."""
+    with _lock:
+        return list(_records)
+
+
+def clear() -> None:
+    with _lock:
+        _records.clear()
 
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     """Profile the block (the CPU, and CUDA where it is available) and write
     its Chrome trace to ``logdir/trace_<pid>_<ns>.json``; yields the
-    profiler (``key_averages()`` after the block)."""
+    profiler (``key_averages()`` after the block).  The program's spans
+    record inside it."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -50,32 +117,3 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
 def annotate(name: str):
     """A labelled region inside a trace (``record_function``)."""
     return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Accumulate named phase durations (host wall clock)."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.time() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        parts = []
-        for name, total in sorted(self.totals.items(),
-                                  key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            parts.append(f"{name} {total:.2f}s ({total / max(n, 1):.3f}s x{n})")
-        return " | ".join(parts)
-
-    def reset(self):
-        self.totals.clear()
-        self.counts.clear()

@@ -16,8 +16,8 @@ against the JAX package's, on the CPU and with no network.
   hit, and an offline miss raising ``RuntimeError`` (``urlretrieve``
   patched to fail: nothing is downloaded); ``load_weights`` reading a
   cached URL.
-* ``StepTimer.report()`` equal to the JAX one; ``trace`` writing a Chrome
-  trace with an ``annotate`` region on the CPU.
+* ``trace`` writing a Chrome trace with an ``annotate`` region on the
+  CPU.
 * ``probe_region_order`` (MinkUNet14A, a small scene whose "fused
   features" are the model's own output under ``x_fastest``, so that order
   scores about 1): the scores within 1e-4 of the JAX function's, the same
@@ -197,24 +197,6 @@ def test_load_weights_reads_a_cached_url(tmp_path, monkeypatch):
 
 
 # ---- profiling ----
-
-def test_step_timer_report_matches_jax():
-    from openscene_tpu.utils.profiling import StepTimer as JaxTimer
-    from openscene_tpu_torch.utils.profiling import StepTimer
-    timers = StepTimer(), JaxTimer()
-    for t in timers:
-        for name, total, n in (("data", 1.25, 4), ("step", 3.5, 4),
-                               ("save", 0.1234, 1)):
-            t.totals[name] += total
-            t.counts[name] += n
-        with t.phase("io"):
-            pass
-        t.totals["io"] = 0.5
-    assert timers[0].report() == timers[1].report()
-    assert timers[0].report().startswith("step 3.50s (0.875s x4) | data")
-    timers[0].reset()
-    assert timers[0].report() == ""
-
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     from openscene_tpu_torch.utils.profiling import annotate, trace
