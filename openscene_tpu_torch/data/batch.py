@@ -13,7 +13,9 @@ Counterpart of ``openscene_tpu/data/batch.py`` with host-built geometry
 The train-time per-batch random global coordinate shift
 (``coords[:,1:4] += rand(3)*100``, run/distill.py:315) is applied here.
 
-The arrays are NumPy; :func:`openscene_tpu_torch.sparse.geometry_to_device`
+The arrays are NumPy (a train batch's fp16 targets in page-locked memory
+where CUDA is present, :func:`_target_buffer`);
+:func:`openscene_tpu_torch.sparse.geometry_to_device`
 moves the geometry to a device.  The ``assemble_raw_*`` functions build no
 geometry at all: the step builds it on the device
 (``sparse/geometry_device.py``) from the padded level-0 coordinates, for
@@ -25,6 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..sparse.geometry import (GeometryCaps, _bucket, _pad_level,
                                build_unet_geometry, level_counts)
@@ -144,11 +147,23 @@ def assemble_distill_batch(samples: Sequence[SceneSample], dim: int,
                         labels=labels, num_voxels=n)
 
 
+def _target_buffer(cap0: int, dim: int) -> np.ndarray:
+    """A zeroed ``(cap0, dim)`` fp16 target buffer, page-locked where CUDA
+    is present (a DataLoader's ``pin_memory``): the step's upload of a
+    batch's targets (1.7 GB at 768-d and a 1.1M-row cap) is then one DMA,
+    and the host's copy of them stays with the thread that assembles the
+    batch, off the step."""
+    if torch.cuda.is_available():
+        return torch.zeros((cap0, dim), dtype=torch.float16,
+                           pin_memory=True).numpy()
+    return np.zeros((cap0, dim), dtype=np.float16)
+
+
 def _train_buffers(samples, dim, cap0, n, perm, inv, offs):
     """(feats, feat_3d, mask, labels) of a train batch at its voxel rows:
     fp16 targets placed where a fused feature exists."""
     feats = np.zeros((cap0, 3), dtype=np.float32)
-    feat_3d = np.zeros((cap0, dim), dtype=np.float16)  # fp16 end to end
+    feat_3d = _target_buffer(cap0, dim)  # fp16 end to end
     mask = np.zeros(cap0, dtype=np.float32)
     labels = np.full(cap0, 255, dtype=np.int32)
     feats[:n] = np.concatenate([s.feats for s in samples])[perm]

@@ -25,12 +25,19 @@ exactly zero there.
 These functions are the oracles of the CUDA kernels and the CPU path of
 their wrappers (:mod:`.stencil_conv`, :mod:`.edge_conv`).  The model calls
 the wrappers, never these convolutions directly.
+
+The model's BatchNorm and 1x1 convs have no kernel of their own: the model
+calls :func:`masked_batch_norm` and :func:`conv1x1` here, which train
+through autograd Functions (spans ``unet.bn`` and ``unet.conv1x1``, in
+the forward and the backward) that keep the compute-dtype input for the
+backward, not fp32 copies of it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .types import DownPlan
 
 
@@ -52,6 +59,61 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """
     acc = _acc_dtype(a.dtype)
     return torch.matmul(a.to(acc), b.to(acc))
+
+
+def matmul_rounded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the operands' dtype: fp32 (fp64) products and sums,
+    rounded once.  On CUDA a bf16 GEMM with fp32 accumulation (cuBLAS;
+    ``device.resolve_device`` turns reduced-precision reductions off); on
+    the CPU :func:`matmul_f32` and a cast."""
+    if a.is_cuda:
+        return torch.matmul(a, b)
+    return matmul_f32(a, b).to(a.dtype)
+
+
+class Conv1x1Fn(torch.autograd.Function):
+    """A 1x1 conv ``x @ w`` (x: (rows, Cin) in the compute dtype, w: (Cin,
+    Cout) fp32) whose backward keeps ``x`` and the weight cast to x's
+    dtype, not fp32 copies.
+
+    Forward and ``dx`` are :func:`matmul_rounded` (fp32 sums, one rounding
+    to x's dtype), as ``matmul_f32(...).to(x.dtype)`` computes them; ``dW``
+    is fp32 (on CUDA cuBLAS's GEMM with an fp32 output).  ``dx`` is skipped
+    where ``x`` needs no gradient (the constant-input stem's occupancy).
+    Zero rows of ``x`` and of the cotangent give zero rows of the output
+    and of ``dx``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w):
+        with span("unet.conv1x1"):
+            wc = w.to(x.dtype)
+            ctx.save_for_backward(x, wc)
+            ctx.w_dtype = w.dtype
+            return matmul_rounded(x, wc)
+
+    @staticmethod
+    def backward(ctx, g):
+        with span("unet.conv1x1"):
+            x, wc = ctx.saved_tensors
+            g = g.to(x.dtype)
+            dx = (matmul_rounded(g, wc.t()) if ctx.needs_input_grad[0]
+                  else None)
+            if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+                dw = torch.mm(x.t(), g, out_dtype=torch.float32)
+            else:
+                dw = matmul_f32(x.t(), g)
+            return dx, dw.to(ctx.w_dtype)
+
+
+def conv1x1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (w: (Cin, Cout) fp32, cast to x's dtype) in x's dtype, fp32
+    sums rounded once: :class:`Conv1x1Fn` where autograd records, the same
+    product under ``no_grad`` (eval), which so records no ``unet.conv1x1``
+    span, a span of training."""
+    if torch.is_grad_enabled():
+        return Conv1x1Fn.apply(x, w)
+    return matmul_rounded(x, w.to(x.dtype))
 
 
 def gather_matmul_sum(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor
@@ -161,10 +223,12 @@ def sparse_up_conv_bwd(x, w, g, plan: DownPlan):
     return dx, gather_wgrad(x, g, plan.fwd)
 
 
-def masked_batch_norm(x, mask, num, gamma, beta, running_mean, running_var,
-                      *, train: bool, momentum: float = 0.1,
-                      eps: float = 1e-5):
-    """BatchNorm over valid rows only (MinkowskiBatchNorm semantics).
+def masked_batch_norm_plain(x, mask, num, gamma, beta, running_mean,
+                            running_var, *, train: bool,
+                            momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm over valid rows only (MinkowskiBatchNorm semantics), as
+    plain ops: the oracle of :class:`MaskedBatchNormFn`, and the eval
+    path of :func:`masked_batch_norm`.
 
     x: (cap, C); mask: (cap, 1) fp32; num: valid-row count.
     Returns (out, new_running_mean, new_running_var); out is computed in
@@ -176,15 +240,105 @@ def masked_batch_norm(x, mask, num, gamma, beta, running_mean, running_var,
         mean = (xf * mask).sum(0) / n
         centered = (xf - mean) * mask
         var = (centered * centered).sum(0) / n  # biased, like torch BN
-        unbiased = var * n / max(n - 1.0, 1.0)
-        new_mean = (1 - momentum) * running_mean + momentum * mean
-        new_var = (1 - momentum) * running_var + momentum * unbiased
+        new_mean, new_var = _running(mean, var, n, running_mean,
+                                     running_var, momentum)
     else:
         mean, var = running_mean, running_var
         new_mean, new_var = running_mean, running_var
     inv = torch.rsqrt(var + eps)
     out = ((xf - mean) * inv * gamma + beta) * mask
     return out.to(x.dtype), new_mean, new_var
+
+
+def _running(mean, var, n: float, running_mean, running_var,
+             momentum: float):
+    """The running buffers moved towards the batch's mean and unbiased
+    variance."""
+    unbiased = var * n / max(n - 1.0, 1.0)
+    return ((1 - momentum) * running_mean + momentum * mean,
+            (1 - momentum) * running_var + momentum * unbiased)
+
+
+class MaskedBatchNormFn(torch.autograd.Function):
+    """Training-mode masked BatchNorm whose backward keeps only the input
+    in its own dtype, the mask and per-channel statistics.
+
+    ``apply(x, mask, n, gamma, beta, eps) -> (out, mean, var)``: the
+    forward is :func:`masked_batch_norm_plain`'s, op for op; autograd of
+    those ops would keep about four fp32 ``(cap, C)`` copies of a bf16
+    input.  The backward recomputes ``xf - mean`` from ``x`` and takes the
+    gradient of the same ops in the order autograd takes them: through
+    ``out * mask``, ``+ beta``, ``* gamma`` and ``* inv``; through
+    ``rsqrt``, the variance's sum and ``centered * centered`` (the two
+    equal halves added); each ``xf - mean`` hands ``-sum`` of its gradient
+    to ``mean``, which goes back through ``(xf * mask).sum(0) / n``; the
+    three gradients of ``xf`` are added in that order.  So ``dx``,
+    ``dgamma`` and ``dbeta`` equal the plain ops' autograd bit for bit in
+    every dtype, and ``dx`` is exactly zero at padded rows.  ``mean`` and
+    ``var`` carry no gradient (the running buffers' update reads them).
+    """
+
+    @staticmethod
+    def forward(ctx, x, mask, n: float, gamma, beta, eps: float):
+        with span("unet.bn"):
+            xf = x.float()
+            mean = (xf * mask).sum(0) / n
+            centered = (xf - mean) * mask
+            var = (centered * centered).sum(0) / n
+            del centered
+            inv = torch.rsqrt(var + eps)
+            out = ((xf - mean) * inv * gamma + beta) * mask
+            ctx.save_for_backward(x, mask, mean, inv, gamma)
+            ctx.n = n
+            ctx.mark_non_differentiable(mean, var)
+            return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        with span("unet.bn"):
+            x, mask, mean, inv, gamma = ctx.saved_tensors
+            n = ctx.n
+            a = x.float() - mean                   # xf - mean, recomputed
+            g = dy.float() * mask                  # out = d * mask
+            dbeta = g.sum(0)                       # d = c + beta
+            dgamma = (g * (a * inv)).sum(0)        # c = b * gamma
+            g = g * gamma
+            dinv = (g * a).sum(0)                  # b = (xf - mean) * inv
+            dxf = g * inv
+            del g
+            dvar = -0.5 * dinv * inv.pow(3)        # inv = rsqrt(var + eps)
+            a.mul_(mask)                           # cen
+            dc = (dvar / n) * a                    # var = sum(cen * cen) / n
+            del a
+            dc = (dc + dc) * mask                  # cen = (xf - mean) * mask
+            dmean = -dxf.sum(0) - dc.sum(0)        # both xf - mean
+            dxf += dc
+            del dc
+            dxf += (dmean / n) * mask              # mean = sum(xf * mask) / n
+            return (dxf.to(x.dtype), None, None, dgamma.to(gamma.dtype),
+                    dbeta.to(gamma.dtype), None)
+
+
+def masked_batch_norm(x, mask, num, gamma, beta, running_mean, running_var,
+                      *, train: bool, momentum: float = 0.1,
+                      eps: float = 1e-5):
+    """BatchNorm over valid rows only (MinkowskiBatchNorm semantics).
+
+    x: (cap, C); mask: (cap, 1) fp32; num: valid-row count.
+    Returns (out, new_running_mean, new_running_var); out is computed in
+    fp32 and re-masked so padded rows stay exactly zero despite beta.
+    Training runs :class:`MaskedBatchNormFn` (the plain forward, a
+    backward that keeps the input and per-channel statistics); eval runs
+    the plain ops.
+    """
+    if not train:
+        return masked_batch_norm_plain(
+            x, mask, num, gamma, beta, running_mean, running_var,
+            train=False, momentum=momentum, eps=eps)
+    n = float(max(int(num), 1))
+    out, mean, var = MaskedBatchNormFn.apply(x, mask, n, gamma, beta, eps)
+    return (out,) + _running(mean, var, n, running_mean, running_var,
+                             momentum)
 
 
 def relu(x):
