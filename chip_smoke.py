@@ -38,7 +38,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    groups' build alone, and drives kernel 7 (the pair-packed transpose,
    ``pack_pairs_t``) through its benchmark
    (``scripts/dev_pack_bench.bench_pack``) at its five shapes, where kernel,
-   plain version and one PyTorch call must be bit-equal;
+   plain version and one PyTorch call must be bit-equal; then times the
+   training BatchNorm's kernels (``scripts/dev_bn_bench.bench_bn``, forward
+   and backward with the ReLU at the level-0 and level-4 widths of
+   MinkUNet18A and MinkUNet101) beside the plain Function they replace
+   on the card and ``torch.nn.functional.batch_norm``; each output must
+   lie within its sum-order tolerance of the plain ops' autograd, two runs
+   must be bit-equal and each direction must make 3 launches;
 5. drives the serving path: zero-shot evaluation of MinkUNet18A at 768-d
    OpenSeg width through ``runtime.evaluate.ZeroShotEvaluator`` on ``cuda``,
    in ensemble and distill modes, on 2 synthetic ScanNet-like scenes at 2 cm
@@ -62,7 +68,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    3 steps.  The launch counters are set to 0 before each step and read
    after it: 32 stencil, 4 down-conv and 4 up-conv forward launches and 32
    stencil, 4 down-conv and 4 up-conv backward launches per step, and no
-   overflow.
+   overflow, and 3 forward and 3 backward launches of the BatchNorm
+   kernels for each of the model's BatchNorms.
    Losses must be finite and the third below the first.  One step through
    device geometry and one through host geometry on the same batch, caps
    and starting state must give the same loss and gradients exactly.  Each
@@ -180,7 +187,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    train batch with few iterations: each up conv forward and
    forward+backward by the model's route against the dense route;
 14. prints the eval, train, hostmem, seg, dist, fusion, spatial, resnet,
-   exports and drill summaries, the card line, one ``{"kernels": [...]}``
+   exports, drill and BatchNorm summaries, the card line, one ``{"kernels": [...]}``
    JSON line (each kernel's launches on the main paths, the spatial,
    ResNet and drill paths included), and last ``{"ok": true, "device":
    {...}}``.
@@ -970,9 +977,10 @@ def plain_path():
     forward and backward (for the on-card comparison of a whole forward or
     train step only)."""
     import contextlib
-    from openscene_tpu_torch.sparse import edge_conv, stencil_conv
+    from openscene_tpu_torch.sparse import batch_norm, edge_conv, stencil_conv
 
     wrappers()  # hold the kernel wrappers themselves before the names move
+    bn_wrappers()
 
     def fwd_plain(x, w, fwd, skip=None):  # the plain versions need no skip
         return stencil_conv.stencil_conv_plain(x, w, fwd)
@@ -985,7 +993,9 @@ def plain_path():
              (edge_conv, "down_conv_fwd", edge_conv.down_conv_plain),
              (edge_conv, "down_conv_bwd", edge_conv.down_conv_bwd_plain),
              (edge_conv, "up_conv_fwd", edge_conv.up_conv_plain),
-             (edge_conv, "up_conv_bwd", edge_conv.up_conv_bwd_plain)]
+             (edge_conv, "up_conv_bwd", edge_conv.up_conv_bwd_plain),
+             (batch_norm, "masked_bn_fwd", batch_norm.masked_bn_fwd_plain),
+             (batch_norm, "masked_bn_bwd", batch_norm.masked_bn_bwd_plain)]
 
     @contextlib.contextmanager
     def ctx():
@@ -1020,8 +1030,26 @@ def wrappers():
             "up_conv_fwd": up_conv_fwd, "pack_pairs_t": pack_pairs_t}
 
 
+@functools.lru_cache(maxsize=None)
+def bn_wrappers():
+    """The training BatchNorm's two kernel wrappers (3 launches each per
+    BatchNorm and direction), held like :func:`wrappers`'."""
+    from openscene_tpu_torch.sparse.batch_norm import (masked_bn_bwd,
+                                                       masked_bn_fwd)
+    return masked_bn_fwd, masked_bn_bwd
+
+
+def bn_counts():
+    return tuple(w.launches for w in bn_wrappers())
+
+
+def bn_modules(model):
+    return sum(type(m).__name__ == "MaskedBatchNorm"
+               for m in model.modules())
+
+
 def zero_counts():
-    for w in wrappers().values():
+    for w in (*wrappers().values(), *bn_wrappers()):
         w.launches = 0
 
 
@@ -1053,7 +1081,8 @@ def train_phase(trainer, batches, card, what, steps=TRAIN_STEPS,
     ``next``); ``falls``: the last loss must be below the first."""
     import math
     import torch
-    total = dict.fromkeys(wrappers(), 0)
+    total = dict.fromkeys((*wrappers(), "masked_batch_norm"), 0)
+    want_bn = (3 * bn_modules(trainer.model),) * 2
     losses, voxels, t_host, t_dev = [], 0, 0.0, 0.0
     overflows = trainer.overflows
     t_all = time.time()
@@ -1073,10 +1102,14 @@ def train_phase(trainer, batches, card, what, steps=TRAIN_STEPS,
         if got != expected(TRAIN_LAUNCHES):
             raise AssertionError(f"train step {i}: launches {got}, want "
                                  f"{expected(TRAIN_LAUNCHES)}")
+        if bn_counts() != want_bn:
+            raise AssertionError(f"train step {i}: BatchNorm kernel "
+                                 f"launches {bn_counts()}, want {want_bn}")
         if not math.isfinite(loss):
             raise AssertionError(f"train step {i}: loss {loss}")
-        for k in total:
+        for k in got:
             total[k] += got[k]
+        total["masked_batch_norm"] += sum(bn_counts())
         losses.append(loss)
         voxels += int(raw.num)
         t_host += host
@@ -1190,13 +1223,15 @@ def compare_train_step(trainer, batch, what="train"):
 
     zero_counts()
     loss_k, grads_k, params_k = run(torch.bfloat16)
-    if read_counts() != expected(TRAIN_LAUNCHES):
-        raise AssertionError(f"compared step: launches {read_counts()}")
+    if (read_counts() != expected(TRAIN_LAUNCHES)
+            or bn_counts() != (3 * bn_modules(model),) * 2):
+        raise AssertionError(f"compared step: launches {read_counts()}, "
+                             f"BatchNorm {bn_counts()}")
     with plain_path():
         zero_counts()
         loss_p, grads_p, params_p = run(torch.bfloat16)
         loss_32, grads_32, _ = run(torch.float32)
-        if any(read_counts().values()):
+        if any(read_counts().values()) or any(bn_counts()):
             raise AssertionError("the plain path launched a kernel")
 
     def dist(a, b):  # per parameter and all together, relative L2 to b
@@ -1950,7 +1985,7 @@ def seg_phase(card, device):
         raise AssertionError(f"seg eval: launches {got}, want {want}")
     if not 0.0 <= res["miou"] <= 1.0:
         raise AssertionError(f"seg eval: mIoU {res['miou']}")
-    for k in launches:
+    for k in got:
         launches[k] += got[k]
     print(f"seg eval: {ARCH} 3->20, {N_SCENES} val scenes, {voxels} voxels "
           f"in {dt:.3f}s -> {voxels / dt:.1f} voxels/s, mIoU "
@@ -3252,6 +3287,7 @@ def main():
                                                       load_model_for_eval,
                                                       make_eval_step)
     from openscene_tpu_torch.scripts.dev_bench_ops import bench_ops
+    from openscene_tpu_torch.scripts.dev_bn_bench import bench_bn
     from openscene_tpu_torch.scripts.dev_pack_bench import bench_pack
     from openscene_tpu_torch.sparse import _build
     from openscene_tpu_torch.sparse.geometry import geometry_to_device
@@ -3314,6 +3350,19 @@ def main():
     cases["pack_pairs_t"] = [dict(r, shape=f"cap={r['shape'][0]} "
                                   f"C={r['shape'][1]}", max_abs_err=0.0,
                                   tol=0.0) for r in pack_rows]
+    # the training BatchNorm's kernels (no TPU kernel): beside the plain
+    # Function they replace on the card and the library's batch_norm
+    bn_rows = bench_bn()
+    for r in bn_rows:
+        print(f"kernel masked_batch_norm {r['shape']} (bf16, ReLU, forward "
+              f"and backward): {r['ms']:.4f} ms (forward {r['fwd_ms']:.4f}, "
+              f"backward {r['bwd_ms']:.4f}), plain {r['plain_ms']:.4f}, "
+              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} "
+              f"(bytes, {r['roofline_pct']:.1f}%), share of the "
+              f"tolerance to the plain ops used: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          r["tolerance_used"].items())
+              + f"; bit-equal, launches 3 + 3 [{card}]", flush=True)
     for name, shapes in cases.items():
         for c in shapes:
             print(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms"
@@ -3520,6 +3569,21 @@ def main():
         else:
             entry["also_launches"] = ALSO_LAUNCHES[name]
         kernels.append(entry)
+    kernels.append({
+        "name": "masked_batch_norm", "route": "cuda",
+        "source": "openscene_tpu_torch/csrc/masked_bn.cu",
+        "replaces": "no pallas_call (the JAX package leaves BatchNorm to "
+                    "XLA)",
+        "launches_per_train_step": (train_launches["masked_batch_norm"]
+                                    / TRAIN_STEPS),
+        "tolerance_used": max(max(r["tolerance_used"].values())
+                              for r in bn_rows),
+        "ms": bn_rows[0]["ms"], "plain_ms": bn_rows[0]["plain_ms"],
+        "bound_ms": bn_rows[0]["bound_ms"],
+        "bound_by": bn_rows[0]["bound_by"],
+        "library_ms": bn_rows[0]["library_ms"],
+        "main_path": "sparse/batch_norm.py:MaskedBatchNormKernelFn",
+        "shapes": bn_rows})
     print(f"skip plans: {json.dumps(skip_stats)}", flush=True)
     print(f"geometry: {json.dumps(geo_stats)}; host assembly ms raw "
           f"{t_raw_asm:.1f}, host geometry {t_host_asm:.1f}", flush=True)
@@ -3534,6 +3598,7 @@ def main():
     print(f"resnet: {json.dumps(resnet_stats)}", flush=True)
     print(f"exports: {json.dumps(exports_stats)}", flush=True)
     print(f"drill: {json.dumps(drill_stats)}", flush=True)
+    print(f"bn: {json.dumps(bn_rows)}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

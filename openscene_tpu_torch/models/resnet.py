@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..sparse.ops import masked_global_avg_pool, relu, valid_mask
+from ..sparse.ops import masked_global_avg_pool, valid_mask
 from ..sparse.types import UNetGeometry
 from .sparse_unet import (Block, MaskedBatchNorm, _conv_weight,
                           _edge_down_conv, _stencil_conv)
@@ -90,12 +90,12 @@ class ResNet(nn.Module):
         dev = x.device
         masks = [valid_mask(l.num, l.cap, device=dev) for l in geo.levels]
         nums = [int(l.num) for l in geo.levels]
-        out = relu(self.bn0(_stencil_conv(x, self.conv0, geo.stem),
-                            masks[0], nums[0]))
+        out = self.bn0(_stencil_conv(x, self.conv0, geo.stem), masks[0],
+                       nums[0], relu=True)
         for i in range(1, 5):
             out = _edge_down_conv(out, getattr(self, f"conv{i}"),
                                   geo.down[i - 1])
-            out = relu(getattr(self, f"bn{i}")(out, masks[i], nums[i]))
+            out = getattr(self, f"bn{i}")(out, masks[i], nums[i], relu=True)
             for blk in getattr(self, f"block{i}"):
                 out = blk(out, geo.self3[i], masks[i], nums[i])
         pooled = masked_global_avg_pool(out, masks[4], nums[4],

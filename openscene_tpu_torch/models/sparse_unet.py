@@ -25,10 +25,12 @@ the valid rows and updates its running buffers, and the sparse convs carry
 their gradients through the autograd Functions of ``sparse/stencil_conv.py``
 and ``sparse/edge_conv.py``, whose backward is a CUDA kernel on the card.
 BatchNorm and the 1x1 convs (the bottleneck's, the residual projections,
-the constant-input stem's occupancy GEMM) train through the Functions of
-``sparse/ops.py``, whose backward keeps the compute-dtype input and
-per-channel statistics, not fp32 copies: a bf16 MinkUNet101 step at
-batch 8 fits one card.
+the constant-input stem's occupancy GEMM) train through autograd Functions
+whose backward keeps the compute-dtype input and per-channel statistics,
+not fp32 copies: a bf16 MinkUNet101 step at batch 8 fits one card.  On the
+card the training BatchNorm is CUDA kernels (``sparse/batch_norm.py``), and
+the ReLU that follows a BatchNorm directly (``relu=True``; not the ones
+after a residual add) runs in the same kernels.
 """
 
 from __future__ import annotations
@@ -128,15 +130,24 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x, mask, num):
+    def forward(self, x, mask, num, relu: bool = False):
+        """The normalised ``x``, then ReLU with ``relu``.  Training on the
+        card runs the kernels, which move the buffers in place and apply
+        the ReLU themselves; elsewhere the buffers are copied from the
+        returned ones."""
+        # ``relu`` reaches the op on the kernels' route only, and the ReLU
+        # follows here elsewhere: the float64 stand-ins for
+        # ``masked_batch_norm`` in benchmark/tests/test_bench_bottleneck.py
+        # take no ``relu`` yet (ROADMAP.md §7 item 5)
+        fold = relu and self.training and x.is_cuda
         out, mean, var = masked_batch_norm(
             x, mask, num, self.gamma, self.beta, self.mean, self.var,
-            train=self.training)
-        if self.training:
+            train=self.training, **({"relu": True} if fold else {}))
+        if self.training and mean is not self.mean:
             with torch.no_grad():
                 self.mean.copy_(mean)
                 self.var.copy_(var)
-        return out
+        return torch.relu(out) if relu and not fold else out
 
 
 class Block(nn.Module):
@@ -167,12 +178,13 @@ class Block(nn.Module):
     def forward(self, x, plan: ConvPlan, mask, num):
         residual = x
         if self.block == "basic":
-            out = relu(self.bn1(_stencil_conv(x, self.conv1, plan), mask, num))
+            out = self.bn1(_stencil_conv(x, self.conv1, plan), mask, num,
+                           relu=True)
             out = self.bn2(_stencil_conv(out, self.conv2, plan), mask, num)
         else:
-            out = relu(self.bn1(_conv1x1(x, self.conv1), mask, num))
-            out = relu(self.bn2(_stencil_conv(out, self.conv2, plan), mask,
-                                num))
+            out = self.bn1(_conv1x1(x, self.conv1), mask, num, relu=True)
+            out = self.bn2(_stencil_conv(out, self.conv2, plan), mask, num,
+                           relu=True)
             out = self.bn3(_conv1x1(out, self.conv3), mask, num)
         if hasattr(self, "down"):
             residual = self.down_bn(_conv1x1(x, self.down), mask, num)
@@ -249,13 +261,13 @@ class MinkUNet(nn.Module):
             out = conv1x1(occ.t(), wsum)
         else:
             out = _stencil_conv(x, self.conv0, geo.stem)
-        out = relu(self.bn0(out, masks[0], nums[0]))
+        out = self.bn0(out, masks[0], nums[0], relu=True)
 
         enc = [out]
         for i in range(1, 5):
             out = _edge_down_conv(out, getattr(self, f"conv{i}"),
                                   geo.down[i - 1])
-            out = relu(getattr(self, f"bn{i}")(out, masks[i], nums[i]))
+            out = getattr(self, f"bn{i}")(out, masks[i], nums[i], relu=True)
             out = self._stage(f"block{i}", out, geo.self3[i], masks[i],
                               nums[i])
             enc.append(out)
@@ -265,7 +277,8 @@ class MinkUNet(nn.Module):
             lvl = 3 - j
             out = _edge_up_conv(out, getattr(self, f"convtr{i}"),
                                 geo.down[lvl])
-            out = relu(getattr(self, f"bntr{i}")(out, masks[lvl], nums[lvl]))
+            out = getattr(self, f"bntr{i}")(out, masks[lvl], nums[lvl],
+                                                relu=True)
             out = torch.cat([out, enc[lvl]], dim=1)
             out = self._stage(f"block{i + 1}", out, geo.self3[lvl],
                               masks[lvl], nums[lvl])

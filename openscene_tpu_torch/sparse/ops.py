@@ -26,11 +26,13 @@ These functions are the oracles of the CUDA kernels and the CPU path of
 their wrappers (:mod:`.stencil_conv`, :mod:`.edge_conv`).  The model calls
 the wrappers, never these convolutions directly.
 
-The model's BatchNorm and 1x1 convs have no kernel of their own: the model
-calls :func:`masked_batch_norm` and :func:`conv1x1` here, which train
-through autograd Functions (spans ``unet.bn`` and ``unet.conv1x1``, in
-the forward and the backward) that keep the compute-dtype input for the
-backward, not fp32 copies of it.
+The model calls :func:`masked_batch_norm` and :func:`conv1x1` here.  In
+training, on a CUDA tensor, the BatchNorm runs the CUDA kernels of
+:mod:`.batch_norm` (with the following ReLU folded in where the model asks
+for it); on the CPU it runs :class:`MaskedBatchNormFn`, the plain ops with
+a backward that keeps the compute-dtype input, which is also the kernels'
+oracle.  The 1x1 convs train through :class:`Conv1x1Fn`.  Spans
+``unet.bn`` and ``unet.conv1x1`` cover both directions.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.profiling import span
+from .batch_norm import MaskedBatchNormKernelFn
 from .types import DownPlan
 
 
@@ -321,24 +324,38 @@ class MaskedBatchNormFn(torch.autograd.Function):
 
 def masked_batch_norm(x, mask, num, gamma, beta, running_mean, running_var,
                       *, train: bool, momentum: float = 0.1,
-                      eps: float = 1e-5):
-    """BatchNorm over valid rows only (MinkowskiBatchNorm semantics).
+                      eps: float = 1e-5, relu: bool = False):
+    """BatchNorm over valid rows only (MinkowskiBatchNorm semantics), then
+    ReLU with ``relu``.
 
-    x: (cap, C); mask: (cap, 1) fp32; num: valid-row count.
-    Returns (out, new_running_mean, new_running_var); out is computed in
-    fp32 and re-masked so padded rows stay exactly zero despite beta.
-    Training runs :class:`MaskedBatchNormFn` (the plain forward, a
-    backward that keeps the input and per-channel statistics); eval runs
-    the plain ops.
+    x: (cap, C); mask: (cap, 1) fp32, the rows below ``num``; num:
+    valid-row count.  Returns (out, new_running_mean, new_running_var);
+    out is computed in fp32 and re-masked so padded rows stay exactly zero
+    despite beta.  Eval runs the plain ops.  Training on a CUDA tensor
+    runs the kernels (:class:`.batch_norm.MaskedBatchNormKernelFn`, which
+    reads the valid rows from ``num``), moves ``running_mean`` and
+    ``running_var`` in place and returns them; training on the CPU runs
+    :class:`MaskedBatchNormFn` (the plain forward, a backward that keeps
+    the input and per-channel statistics) and returns new buffers.  With
+    ``relu`` the CPU and eval output is ``relu`` of the output without it,
+    bit for bit.
     """
-    if not train:
-        return masked_batch_norm_plain(
+    if train and x.is_cuda:
+        out = MaskedBatchNormKernelFn.apply(
+            x, int(num), gamma, beta, running_mean, running_var, relu,
+            momentum, eps)
+        return out, running_mean, running_var
+    if train:
+        n = float(max(int(num), 1))
+        out, mean, var = MaskedBatchNormFn.apply(x, mask, n, gamma, beta,
+                                                 eps)
+        mean, var = _running(mean, var, n, running_mean, running_var,
+                             momentum)
+    else:
+        out, mean, var = masked_batch_norm_plain(
             x, mask, num, gamma, beta, running_mean, running_var,
             train=False, momentum=momentum, eps=eps)
-    n = float(max(int(num), 1))
-    out, mean, var = MaskedBatchNormFn.apply(x, mask, n, gamma, beta, eps)
-    return (out,) + _running(mean, var, n, running_mean, running_var,
-                             momentum)
+    return (torch.relu(out) if relu else out), mean, var
 
 
 def relu(x):

@@ -119,9 +119,10 @@ def batch():
 
 
 def _bn64(x, mask, num, gamma, beta, running_mean, running_var, *, train,
-          momentum=0.1, eps=1e-5):
+          momentum=0.1, eps=1e-5, relu=False):
     """``sparse/ops.py:masked_batch_norm`` in float64 (which the package
-    computes in fp32 for every input): the reference run's BatchNorm."""
+    computes in fp32 for every input): the reference run's BatchNorm,
+    then ReLU with ``relu``."""
     x, mask = x.double(), mask.double()
     n = float(max(int(num), 1))
     mean = (x * mask).sum(0) / n
@@ -130,7 +131,7 @@ def _bn64(x, mask, num, gamma, beta, running_mean, running_var, *, train,
         mean, var = running_mean.double(), running_var.double()
     out = ((x - mean) * torch.rsqrt(var + eps) * gamma.double()
            + beta.double()) * mask
-    return out, running_mean, running_var
+    return (torch.relu(out) if relu else out), running_mean, running_var
 
 
 def _port_grads(model, x, geo, cot):
