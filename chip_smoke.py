@@ -881,10 +881,10 @@ def compare_raw_host(trainer, raw, caps, host_batch):
                 {n: p.detach().clone() for n, p in model.named_parameters()})
 
     def raw_step():
-        loss, over = trainer._raw_step(caps)(raw)
+        geo, over = trainer.geometry.raw_step(step, caps).geometry(raw)
         if over:
             raise AssertionError("the raw step overflowed")
-        return loss
+        return step.run(geo, *step.parts(raw))
 
     loss_r, grads_r, params_r = run(raw_step)
     loss_h, grads_h, params_h = run(lambda: step(host_batch))
@@ -1305,8 +1305,8 @@ def eval_routes_phase(cfg, model, text, samples, card):
     import torch
     from openscene_tpu_torch.data.batch import (assemble_eval_batch,
                                                 assemble_raw_eval_batch)
-    from openscene_tpu_torch.runtime.evaluate import (SceneGeometry,
-                                                      make_eval_step)
+    from openscene_tpu_torch.runtime.evaluate import make_eval_step
+    from openscene_tpu_torch.runtime.geometry_route import SceneGeometry
     from openscene_tpu_torch.sparse.geometry import GeometryCaps
     geometry = SceneGeometry(cfg, model.final.device)
     rows = []
@@ -1956,7 +1956,7 @@ def seg_phase(card, device):
         raise AssertionError(f"{SEG_CONFIG} is not MinkUNet18A 3 -> 20, "
                              "batch 8, constant input")
     trainer = SegTrainer(cfg, device=device)
-    if not trainer.device_geometry:
+    if not trainer.geometry.on:
         raise AssertionError("device_geometry 'auto' is off on cuda")
     launches, summary = train_phase(
         trainer, trainer._epoch_batches(), card,
@@ -2197,14 +2197,19 @@ def _dist_head(d3, dfeat, dev):
         tr.model.load_state_dict(sharded0)
         full.load_state_dict(full0)
         with ctx():
-            tr.step_fn, tr._dg_steps = sgd_step(tr.model, tr.mesh, ccfg), {}
+            tr.step_fn = sgd_step(tr.model, tr.mesh, ccfg)
+            tr.geometry.raw_steps = {}
             zero_counts()
             loss_sh, ms_sh = _rank_record(
                 lambda: float(tr.train_step((raw, caps))))
             counts = read_counts()
-            loss_one, ms_one = _rank_record(lambda: float(RawTrainStep(
-                sgd_step(full, None, ccfg), caps,
-                n_scenes=tr.per_dev_batch)(raw)[0]))
+            one = sgd_step(full, None, ccfg)
+
+            def one_step():
+                geo, _ = RawTrainStep(one, caps,
+                                      tr.per_dev_batch).geometry(raw)
+                return float(one.run(geo, *one.parts(raw)))
+            loss_one, ms_one = _rank_record(one_step)
         got = state_of(tr.model)
         got["final"] = gather_head(got["final"], tr.mesh)
         ref = state_of(full)
@@ -3326,7 +3331,7 @@ def main():
 
     trainer = DistillTrainer(train_config(d3, dfeat), allow_pseudo_text=True,
                              device=device)
-    if not trainer.device_geometry:
+    if not trainer.geometry.on:
         raise AssertionError("device_geometry 'auto' is off on cuda")
     batches = trainer._epoch_batches()
     raw, caps = next(batches)

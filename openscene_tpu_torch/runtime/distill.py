@@ -19,12 +19,8 @@ Parity details carried over:
 Voxelization and batch assembly run on the host (ahead of the device in
 ``workers`` threads); forward, loss, backward and the Adam update run on the
 device, the sparse convs and their gradients through the hand-written CUDA
-kernels.  With ``device_geometry`` on (``auto``: on for a CUDA trainer) the
-host ships only the padded level-0 coordinates (:class:`RawDistillBatch`)
-and the step builds every kernel map on the device
-(``sparse/geometry_device.py``, ``sparse/grid.py``); a batch whose geometry
-overflows its caps or the occupancy grid is built again on the host and
-trained through the host-geometry step, never through the overflowed plans.
+kernels.  Each batch's geometry reaches the step on the card through
+``runtime/geometry_route.py`` (:class:`TrainGeometry`).
 
 Multi-GPU (``parallel/mesh.py``): one process per GPU.  ``data_parallel``
 ranks each train on their slice of the global batch and average the
@@ -49,10 +45,9 @@ from __future__ import annotations
 
 import os
 import sys
-import threading
 import time
 from os.path import isfile, join
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,12 +56,11 @@ import torch.distributed as dist
 from .. import metrics
 from ..config import Config, dataset_name_from_root, load_cli
 from ..convert import optimizer_state_from_optax, params_from_jax
-from ..data.batch import (DistillBatch, RawDistillBatch, RawSegBatch,
-                          SegBatch, assemble_distill_batch,
+from ..data.batch import (DistillBatch, SegBatch, assemble_distill_batch,
                           assemble_raw_distill_batch, assemble_seg_batch)
 from ..data.loaders import FusedFeatureLoader, Point3DLoader
 from ..data.sharded import rank_indices
-from ..device import device_geometry_on, resolve_device
+from ..device import resolve_device
 from ..labels import labelset_and_palette
 from ..models.disnet import output_dim
 from ..models.sparse_unet import MinkUNet
@@ -75,15 +69,16 @@ from ..parallel.mesh import (Mesh, average_buffers, average_gradients,
                              gather_head, group_sum, head_shard, mesh_for,
                              mean_over_data, model_axis_size, replicate,
                              shard_head, sum_over_data)
-from ..sparse.geometry import (GeometryCaps, build_unet_geometry,
-                               geometry_to_device)
-from ..sparse.geometry_device import build_geometry_parts, with_host_counts
+from ..sparse.geometry import geometry_to_device
 from ..sparse.types import UNetGeometry
 from ..sparse.ops import matmul_f32
 from ..text import extract_text_features
 from ..utils.profiling import span
 from ..utils.train_utils import (AverageMeter, ScalarWriter, get_logger,
                                  read_checkpoint, save_checkpoint)
+# RawTrainStep stays importable from here: the benchmark's train entries
+# wrap its ``geometry`` for their geometry span
+from .geometry_route import RawTrainStep, TrainGeometry  # noqa: F401
 
 log = get_logger()
 
@@ -175,7 +170,7 @@ class TrainStep:
     :class:`DistillBatch`.  ``it`` counts the updates taken (the schedule's
     argument); the loss comes back as a 0-d device tensor, so the caller
     decides when to wait for the device.  :meth:`run` takes the geometry
-    already on the device (the raw step's way in) and the batch's level-0
+    already on the device (the trainers' way in) and the batch's level-0
     arrays that :meth:`parts` picks; a subclass with its own
     :meth:`parts` and :meth:`loss_on` trains another objective
     (``runtime/train_seg.py``).
@@ -251,43 +246,6 @@ class TrainStep:
                         *self.parts(batch))
 
 
-class RawTrainStep:
-    """``step(raw) -> (loss, overflow)``: one update of ``step`` on a raw
-    batch (:class:`RawDistillBatch`, or :class:`RawSegBatch` for the seg
-    step, whose result is a tuple) whose geometry is built on the device
-    for the
-    level caps ``caps``, by the occupancy grid when ``n_scenes`` is given
-    (``grid_dims0``: its level-0 extents) and by the search otherwise.
-
-    The overflow flag and the level counts are read in one wait, right
-    after the build and before the forward.  On overflow the step returns
-    ``(None, True)`` without touching the model, the optimizer or ``it``:
-    the caller builds the batch on the host (:func:`host_batch_from_raw`)
-    and runs the host step."""
-
-    def __init__(self, step: TrainStep, caps: Sequence[int],
-                 n_scenes: Optional[int] = None,
-                 grid_dims0: Optional[Tuple[int, int, int]] = None):
-        self.step, self.caps = step, tuple(int(c) for c in caps)
-        self.n_scenes, self.grid_dims0 = n_scenes, grid_dims0
-
-    def geometry(self, raw: RawDistillBatch):
-        """(geometry on the device with host level counts, overflow)."""
-        dev = self.step.device
-        with span("geometry.build"):
-            geo, overflow = build_geometry_parts(
-                torch.as_tensor(raw.coords, device=dev), int(raw.num),
-                self.caps, stem_occupancy=not self.step.cfg.input_color,
-                n_scenes=self.n_scenes, grid_dims0=self.grid_dims0)
-        return with_host_counts(geo, overflow)
-
-    def __call__(self, raw: RawDistillBatch):
-        geo, overflow = self.geometry(raw)
-        if overflow:
-            return None, True
-        return self.step.run(geo, *self.step.parts(raw)), False
-
-
 def make_train_step(cfg: Config, model: MinkUNet,
                     optimizer: torch.optim.Optimizer,
                     schedule: Callable[[int], float], device,
@@ -348,42 +306,16 @@ def iou_histograms(pred: torch.Tensor, labels: torch.Tensor, classes: int,
     return inter, out_1h.sum(0) + tgt - inter, tgt
 
 
-def host_batch_from_raw(raw):
-    """A host-geometry :class:`DistillBatch` (:class:`SegBatch`) from a
-    :class:`RawDistillBatch` (:class:`RawSegBatch`), the overflow fallback:
-    the host builder with caps bucketed from this batch's own voxel count,
-    the level-0 buffers cut or padded to its cap (labels with 255)."""
-    n = int(raw.num)
-    geo = build_unet_geometry(np.asarray(raw.coords[:n]),
-                              caps=GeometryCaps.for_count(n))
-    cap0 = geo.levels[0].cap
+class TrainerBase:
+    """What the trainers share: the rank's place in a multi-GPU run
+    (``mesh``, None on one process), its scenes of each global batch
+    ``workers`` threads ahead of the step on their geometry on the card
+    (``geometry``), and the checkpoints.  The trainer sets ``train_data``,
+    ``batches_per_epoch``, ``rng`` and ``step_fn``, and defines
+    ``assemble(samples)`` and ``assemble_raw(samples, caps)``."""
 
-    def fit(a, fill=0.0):
-        a = np.asarray(a)
-        if a.shape[0] >= cap0:  # rows >= n are padding
-            return a[:cap0]
-        width = [(0, cap0 - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
-        return np.pad(a, width, constant_values=fill)
-
-    if isinstance(raw, RawSegBatch):
-        return SegBatch(geo=geo, feats=fit(raw.feats),
-                        labels=fit(raw.labels, 255), num_voxels=n)
-    return DistillBatch(geo=geo, feats=fit(raw.feats),
-                        feat_3d=fit(raw.feat_3d), mask=fit(raw.mask),
-                        labels=fit(raw.labels, 255), num_voxels=n)
-
-
-class DeviceGeometryTraining:
-    """What a trainer needs to train on geometry built on the device: raw
-    batches ``workers`` threads ahead of the step, one :class:`RawTrainStep`
-    per cap schedule and grid state, and the host fallback on overflow; and
-    its rank's place in a multi-GPU run (``mesh``, None on one process):
-    this rank's scenes of each global batch, on its own running caps.
-    The trainer sets ``train_data``, ``batches_per_epoch``, ``rng`` and
-    ``step_fn`` and defines :meth:`assemble` and :meth:`assemble_raw`."""
-
-    def _init_device_geometry(self, cfg: Config, device, entry: str,
-                              model_parallel: int = 1) -> None:
+    def _init_rank(self, cfg: Config, device, entry: str,
+                   model_parallel: int = 1) -> None:
         """``entry``: the runtime module that launches the trainer."""
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -399,41 +331,16 @@ class DeviceGeometryTraining:
             log.info("multi-GPU: %d x %d mesh (data x model), %d scenes a "
                      "rank", self.mesh.data, self.mesh.model,
                      self.per_dev_batch)
-        # geometry built on the device inside the step: "auto" is on for a
-        # CUDA trainer, off on the CPU; "on" also works on the CPU
-        self.device_geometry = device_geometry_on(cfg.device_geometry,
-                                                  self.device)
-        self._train_caps: Optional[GeometryCaps] = None
-        self._caps_lock = threading.Lock()
-        self._dg_steps: Dict[Tuple, RawTrainStep] = {}
-        # after grid_overflow_limit overflows in a row the occupancy-grid
-        # prober is dropped (the search path has no grid to outgrow)
-        self._grid_enabled = True
-        self._overflow_streak = 0
-        self.overflows = 0  # batches built again on the host
-
-    def assemble(self, samples):
-        """A host-geometry batch of ``samples``."""
-        raise NotImplementedError
-
-    def assemble_raw(self, samples, caps):
-        """``(raw batch, caps)`` of ``samples`` on the running ``caps``."""
-        raise NotImplementedError
+        self.geometry = TrainGeometry(cfg, self.device, self.per_dev_batch)
 
     @property
     def global_step(self) -> int:
         return self.step_fn.it
 
-    def _raw_step(self, caps: Tuple[int, ...]) -> RawTrainStep:
-        """The device-geometry step of one cap schedule and grid state."""
-        key = (caps, self._grid_enabled)
-        if key not in self._dg_steps:
-            self._dg_steps[key] = RawTrainStep(
-                self.step_fn, caps,
-                n_scenes=(self.per_dev_batch if self._grid_enabled
-                          else None),
-                grid_dims0=tuple(self.cfg.grid_dims0) or None)
-        return self._dg_steps[key]
+    @property
+    def overflows(self) -> int:
+        """Batches built on the host after their geometry overflowed."""
+        return self.geometry.overflows
 
     def _epoch_batches(self):
         """Batches built ``workers`` threads ahead of the device step
@@ -445,14 +352,9 @@ class DeviceGeometryTraining:
             idxs = rank_indices(order, i, self.per_dev_batch, self.n_dp,
                                 self.data_index)
             samples = [self.train_data.get(j) for j in idxs]
-            if not self.device_geometry:
+            if not self.geometry.on:
                 return self.assemble(samples)
-            with self._caps_lock:
-                caps = self._train_caps
-            batch, caps = self.assemble_raw(samples, caps)
-            with self._caps_lock:
-                self._train_caps = caps
-            return batch, caps.fixed  # the caps of THIS batch's shapes
+            return self.geometry.raw_batch(self.assemble_raw, samples)
 
         if self.cfg.workers <= 1:
             for i in range(self.batches_per_epoch):
@@ -463,30 +365,11 @@ class DeviceGeometryTraining:
                                   workers=self.cfg.workers)
 
     def train_step(self, batch):
-        """One update on a batch of :meth:`_epoch_batches`; returns the
-        step's result (device tensors).  A raw batch whose device geometry
-        overflows is built on the host and trained through the host step."""
-        if isinstance(batch, (DistillBatch, SegBatch)):
-            return self.step_fn(batch)
-        raw, caps = batch
-        out, overflow = self._raw_step(caps)(raw)
-        if not overflow:
-            self._overflow_streak = 0
-            return out
-        log.warning("device geometry overflowed (caps %s); building the "
-                    "batch on the host", caps)
-        self.overflows += 1
-        self._overflow_streak += 1
-        limit = self.cfg.grid_overflow_limit
-        if (limit > 0 and self._grid_enabled
-                and self._overflow_streak >= limit):
-            log.warning("%d overflows in a row: dropping the occupancy-grid "
-                        "prober (do the scenes exceed grid_dims0=%s?)",
-                        self._overflow_streak,
-                        tuple(self.cfg.grid_dims0) or "default")
-            self._grid_enabled = False
-            self._overflow_streak = 0
-        return self.step_fn(host_batch_from_raw(raw))
+        """One update on a batch of :meth:`_epoch_batches`, on its geometry
+        on the card (:meth:`TrainGeometry.on_card`); returns the step's
+        result (device tensors)."""
+        batch, geo = self.geometry.on_card(self.step_fn, batch)
+        return self.step_fn.run(geo, *self.step_fn.parts(batch))
 
     def _resume(self, path: str) -> Tuple[int, float]:
         """Load a checkpoint into the model, the optimizer and the step
@@ -538,15 +421,14 @@ class DeviceGeometryTraining:
                 "best_iou": self.best_iou}
 
 
-class DistillTrainer(DeviceGeometryTraining):
+class DistillTrainer(TrainerBase):
     def __init__(self, cfg: Config, allow_pseudo_text: bool = False,
                  device=None):
         self.dim = output_dim(cfg.feature_2d_extractor)
         if self.dim % max(cfg.model_parallel, 1):
             raise ValueError(f"model_parallel={cfg.model_parallel} must "
                              f"divide the distill head's D={self.dim}")
-        self._init_device_geometry(cfg, device, "distill",
-                                   cfg.model_parallel)
+        self._init_rank(cfg, device, "distill", cfg.model_parallel)
         gen = torch.Generator().manual_seed(cfg.manual_seed)
         self.model = MinkUNet(3, self.dim, cfg.arch_3d,
                               generator=gen).to(self.device)
@@ -643,19 +525,11 @@ class DistillTrainer(DeviceGeometryTraining):
         ``_epoch_end_viz``): ``save_path/result/last/{ext}_{epoch}.ply``,
         ``pred_{epoch}.ply`` and ``gt_{epoch}.ply``, at the level-0 voxel
         coordinates of scene 0's voxels that have targets.  The model runs
-        in eval mode on the batch's geometry (built on the device for a raw
-        batch, on the host where that overflows)."""
+        in eval mode on the batch's geometry on the card
+        (:meth:`TrainGeometry.on_card`)."""
         from ..utils.viz import export_labeled_cloud
         dev = self.device
-        if isinstance(batch, DistillBatch):
-            geo = geometry_to_device(batch.geo, dev)
-        else:  # (raw batch, caps)
-            raw, caps = batch
-            geo, overflow = self._raw_step(caps).geometry(raw)
-            batch = raw
-            if overflow:
-                batch = host_batch_from_raw(raw)
-                geo = geometry_to_device(batch.geo, dev)
+        batch, geo = self.geometry.on_card(self.step_fn, batch)
         n = int(geo.levels[0].num)
         coords = geo.levels[0].coords[:n].cpu().numpy()
         rows = (np.asarray(batch.mask[:n]) > 0) & (coords[:, 0] == 0)

@@ -4,9 +4,9 @@ one CUDA device by default.
 Counterpart of ``openscene_tpu/runtime/eval_seg.py``: labelset-free eval
 of the trained segmentation UNet with the summed-logit repeats protocol (the
 loader reseeded before every repeat); the nuScenes labeled subset;
-``gt.npy`` / ``pred.npy`` in ``save_folder``.  Each scene's geometry is
-built on the device under ``device_geometry`` (``auto``: on for CUDA), else
-on the host (``train_seg.SegSceneLogits``).
+``gt.npy`` / ``pred.npy`` in ``save_folder``.  Each scene's geometry
+reaches the model on the card through ``runtime/geometry_route.py``
+(``train_seg.SegSceneLogits``).
 
 Multi-GPU (``data_parallel``, one process per GPU), as the zero-shot
 evaluator (``runtime/evaluate.py``): the data ranks take the scenes
@@ -38,7 +38,8 @@ from ..models.sparse_unet import MinkUNet
 from ..parallel import launch
 from ..parallel.mesh import broadcast_from_main, gather_to_main, mesh_for
 from ..utils.train_utils import get_logger
-from .evaluate import load_weights, rank_scene_rounds
+from .evaluate import load_weights
+from .geometry_route import rank_scene_rounds
 from .train_seg import SegSceneLogits
 
 log = get_logger()

@@ -15,28 +15,22 @@ Counterpart of ``openscene_tpu/runtime/evaluate.py`` (reference protocol
   (run/evaluate.py:263-278,414-425).
 
 Voxelization and batch assembly run on the host; the UNet forward, the
-ensemble and the text product run on the device.  With ``device_geometry``
-on (``auto``: on for a CUDA evaluator, off on the CPU) the host ships each
-scene's padded level-0 coordinates (:class:`RawEvalBatch`, level caps that
-only ever grow) and the kernel maps are built on the device, as the train
-step builds them; a scene whose geometry overflows there is planned on the
-host (the C++ builder where g++ is present, else NumPy) and never run on the
-overflowed plans.  Without it every scene is planned on the host.  The
-fused features go to the device only in the modes that read them (fusion,
-ensemble); on the device-geometry route the host ships the scene's own
-``(n, D)`` rows and sort order, and the device places them at the sorted,
-padded voxel rows (:class:`FusedPlacement`).
+ensemble and the text product run on the device, each scene's geometry
+reaching it through ``runtime/geometry_route.py`` (:class:`SceneGeometry`;
+fusion builds none).  The fused features go to the device only in the
+modes that read them (fusion, ensemble); for a scene whose geometry was
+built on the card the host ships the scene's own ``(n, D)`` rows and sort
+order, and the device places them at the sorted, padded voxel rows
+(:class:`FusedPlacement`).
 
 Multi-GPU (``data_parallel``, one process per GPU, ``parallel/mesh.py``):
 rank ``r`` of ``W`` runs scenes ``r, r + W, ...`` of every repeat, in rounds
 of ``W`` scenes, and writes its scenes' feature files; rank 0 gathers, round
 by round, what the metric reads of every scene (point logits, feature mask,
 labels; never the (N, 768) features) and runs the protocol unchanged, and
-every rank returns its results.  With device geometry the ranks share their
-scenes' level counts in each round and grow the running caps in scene
-order, so every scene runs on the caps a one-GPU run gives it and its
-logits on the card are those of the one-GPU run (the kernels' tiles follow
-the caps).  Launch with torchrun, the config's ``coordinator_address``/
+every rank returns its results, each scene's on the caps and so with the
+logits of a one-GPU run (:func:`rank_scene_rounds`; the kernels' tiles
+follow the caps).  Launch with torchrun, the config's ``coordinator_address``/
 ``num_processes``/``process_id``, or ``main`` alone, which starts
 ``data_parallel`` local processes.
 
@@ -62,23 +56,21 @@ import torch
 
 from .. import metrics
 from ..config import Config, dataset_name_from_root, load_cli
-from ..data.batch import (assemble_eval_batch, assemble_raw_eval_sorted,
-                          eval_level_counts, merge_counts)
+from ..data.batch import (RawEvalBatch, assemble_eval_batch,
+                          assemble_raw_eval_sorted)
 from ..data.loaders import FusedFeatureLoader
-from ..data.prefetch import Prefetcher
-from ..device import device_geometry_on, resolve_device
+from ..device import resolve_device
 from ..labels import NO_FEATURE_ID, labelset_and_palette
 from ..models.disnet import build_disnet, output_dim
 from ..models.sparse_unet import MinkUNet
 from ..parallel import launch
-from ..parallel.mesh import (Mesh, all_gather_rows, broadcast_from_main,
-                             gather_to_main, mesh_for)
+from ..parallel.mesh import broadcast_from_main, gather_to_main, mesh_for
 from ..sparse.geometry import geometry_to_device
-from ..sparse.geometry_device import build_geometry_parts, with_host_counts
 from ..sparse.types import UNetGeometry
 from ..text import extract_text_features
 from ..utils.profiling import span
 from ..utils.train_utils import get_logger, read_checkpoint
+from .geometry_route import SceneGeometry, rank_scene_rounds
 
 log = get_logger()
 
@@ -150,76 +142,6 @@ def make_eval_step(mode: str, compute_dtype=torch.bfloat16,
     return step
 
 
-class SceneGeometry:
-    """Geometry of one eval scene at a time on the device (the zero-shot
-    and the seg evaluator): ``device_batch`` assembles the scene's raw batch
-    on the running level caps (which only grow) and builds its plans on the
-    device by the occupancy grid (``cfg.grid_dims0``), the stem as
-    occupancy unless the input is colour, as the raw train step does.
-    ``on`` is ``cfg.device_geometry`` resolved for ``device``; ``mesh``:
-    the multi-GPU run whose data ranks share the running caps
-    (:meth:`share_caps`)."""
-
-    def __init__(self, cfg: Config, device: torch.device,
-                 mesh: Optional[Mesh] = None):
-        self.cfg, self.device, self.mesh = cfg, device, mesh
-        self.on = device_geometry_on(cfg.device_geometry, device)
-        self.caps = None       # the running level caps
-        self.overflows = 0     # scenes planned on the host after overflow
-
-    def share_caps(self, sample):
-        """Every data rank calls it once a round with its scene (None when
-        it has none): the round's scenes' level counts are merged into the
-        running caps in scene order, as one process merges them scene by
-        scene.  Returns the caps after this rank's scene, None without a
-        mesh, device geometry or scene (then :meth:`device_batch` grows the
-        running caps itself)."""
-        if self.mesh is None or not self.on:
-            return None
-        counts = (eval_level_counts([sample]) if sample is not None
-                  else [-1] * 5)
-        mine = None
-        for r, row in enumerate(all_gather_rows(counts, self.mesh)):
-            if row[0] >= 0:
-                self.caps = merge_counts(row, self.caps)
-                if r == self.mesh.data_index:
-                    mine = self.caps
-        return mine
-
-    def build(self, coords: np.ndarray, num, caps):
-        """``(geometry with host level counts, overflow)`` of a padded
-        level-0 batch for the level caps ``caps``; under overflow the plans
-        are not valid."""
-        with span("geometry.build"):
-            geo, overflow = build_geometry_parts(
-                torch.as_tensor(coords, device=self.device), int(num),
-                tuple(caps), stem_occupancy=not self.cfg.input_color,
-                n_scenes=1, grid_dims0=tuple(self.cfg.grid_dims0) or None)
-        return with_host_counts(geo, overflow)
-
-    def device_batch(self, assemble_raw, caps=None):
-        """``(raw batch, geometry on the device)`` of one scene, where
-        ``assemble_raw(caps) -> (raw batch, caps)``, on ``caps`` (from
-        :meth:`share_caps`) or else the running caps grown to hold the
-        scene; None when device geometry is off, or when it overflowed
-        (logged and counted: the caller plans the scene on the host)."""
-        if not self.on:
-            return None
-        if caps is None:
-            raw, self.caps = assemble_raw(self.caps)
-            caps = self.caps
-        else:
-            raw, _ = assemble_raw(caps)
-        geo, overflow = self.build(raw.coords, raw.num, caps.fixed)
-        if not overflow:
-            return raw, geo
-        self.overflows += 1
-        log.warning("device geometry overflowed (caps %s, grid_dims0 %s); "
-                    "planning the scene on the host", caps.fixed,
-                    tuple(self.cfg.grid_dims0) or "default")
-        return None
-
-
 class FusedPlacement:
     """A scene's fused features at its sorted, padded voxel rows on the
     device: the ``(cap0, D)`` fp16 tensor whose rows ``[:n]`` are the
@@ -268,26 +190,6 @@ class FusedPlacement:
             rows, idx = self._upload(rows, torch.from_numpy(perm), cap0)
             torch.index_select(rows, 0, idx, out=out[:len(perm)])
         return out
-
-
-def rank_scene_rounds(get, n_scenes: int, mesh: Optional[Mesh],
-                      geometry: Optional[SceneGeometry] = None,
-                      workers: int = 1):
-    """This rank's scenes of a split: ``(scene index, sample, caps)`` for
-    each round of ``W`` scenes (one a data rank; ``sample`` None where the
-    last round has none for this rank), loaded by ``get(i)`` ``workers``
-    threads ahead.  ``caps``: :meth:`SceneGeometry.share_caps` of the round
-    (``geometry`` None: nothing to share).  On one process (``mesh`` None):
-    every scene in order."""
-    n_dp, r = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
-    mine = range(r, n_scenes, n_dp)
-    samples = iter(Prefetcher(get, mine, workers=workers) if workers > 1
-                   else (get(i) for i in mine))
-    for g in range(0, n_scenes, n_dp):
-        i = g + r
-        sample = next(samples) if i < n_scenes else None
-        caps = None if geometry is None else geometry.share_caps(sample)
-        yield i, sample, caps
 
 
 class ZeroShotEvaluator:
@@ -508,12 +410,9 @@ class ZeroShotEvaluator:
                              join(folder, f"{i}_labels_gt.jpg"))
 
     def scene(self, sample, step, caps=None):
-        """``(step outputs, n_points)`` of one scene: its geometry built on
-        the device under ``device_geometry`` (fusion builds none), else on
-        the host, and on the host when the device's overflows; ``caps``:
-        the level caps shared over a round (:meth:`SceneGeometry.
-        share_caps`), else the running caps.  On the device route the fused
-        features are placed on the device (:class:`FusedPlacement`)."""
+        """``(step outputs, n_points)`` of one scene on its geometry on the
+        card (:meth:`SceneGeometry.on_card` on ``caps``; fusion builds
+        none), its fused features placed there (:class:`FusedPlacement`)."""
         need_model = self.mode != "fusion"
         need_fused = self.mode != "distill"
         perm = None
@@ -525,23 +424,23 @@ class ZeroShotEvaluator:
                     [sample], self.dim, caps=caps, need_fused=False)
             return raw, caps
 
+        def assemble_host():
+            with span("eval.assemble"):
+                return assemble_eval_batch([sample], self.dim,
+                                           need_model=need_model,
+                                           need_fused=need_fused)
+
         if need_model:
-            hit = self.geometry.device_batch(assemble_raw, caps)
-            if hit is not None:
-                raw, geo = hit
-                if need_fused:
-                    with span("eval.place_fused"):
-                        raw = raw._replace(feat_3d=self.place_fused(
-                            sample.feat_3d, perm, len(raw.mask), self.dim))
-                with span("eval.step"):
-                    out = step(self.model, self.text, raw, geo)
-                return out, raw.num_points
-        with span("eval.assemble"):
-            batch = assemble_eval_batch([sample], self.dim,
-                                        need_model=need_model,
-                                        need_fused=need_fused)
+            batch, geo = self.geometry.on_card(assemble_raw, assemble_host,
+                                               caps)
+        else:
+            batch, geo = assemble_host(), None
+        if need_fused and isinstance(batch, RawEvalBatch):
+            with span("eval.place_fused"):
+                batch = batch._replace(feat_3d=self.place_fused(
+                    sample.feat_3d, perm, len(batch.mask), self.dim))
         with span("eval.step"):
-            out = step(self.model, self.text, batch)
+            out = step(self.model, self.text, batch, geo)
         return out, batch.num_points
 
     def _metric(self, logits: np.ndarray, gt: np.ndarray,

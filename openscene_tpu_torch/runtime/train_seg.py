@@ -7,12 +7,9 @@ decay, a poly learning rate (no 10x multiplier here) read at the update
 count before each update, per-batch IoU histograms, a val-gated best
 checkpoint and a per-batch random global shift (in batch assembly).
 
-With ``device_geometry`` on (``auto``: on for a CUDA trainer) the host ships
-only the padded level-0 coordinates (:class:`RawSegBatch`) and the step
-builds every kernel map on the device, as the distillation trainer does
-(``runtime/distill.py:DeviceGeometryTraining``); a batch whose geometry
-overflows is built again on the host and trained through the host step.
-The IoU histograms are computed on the device.  Resume takes the port's own
+Each batch's geometry reaches the step on the card through
+``runtime/geometry_route.py``, as the distillation trainer's does.  The IoU
+histograms are computed on the device.  Resume takes the port's own
 checkpoints and the JAX package's (flax msgpack; optax's SGD trace becomes
 torch's ``momentum_buffer``).
 
@@ -48,13 +45,11 @@ from ..data.loaders import Point3DLoader
 from ..models.sparse_unet import MinkUNet
 from ..parallel import launch
 from ..parallel.mesh import Mesh, replicate, sum_over_data
-from ..sparse.geometry import geometry_to_device
 from ..sparse.types import UNetGeometry
 from ..utils.train_utils import (AverageMeter, ScalarWriter, get_logger,
                                  save_checkpoint)
-from .distill import (DeviceGeometryTraining, TrainStep, compute_dtype,
-                      iou_histograms)
-from .evaluate import SceneGeometry, rank_scene_rounds
+from .distill import TrainerBase, TrainStep, compute_dtype, iou_histograms
+from .geometry_route import SceneGeometry, rank_scene_rounds
 
 log = get_logger()
 
@@ -138,58 +133,36 @@ def make_seg_train_step(cfg: Config, model: MinkUNet,
     return SegTrainStep(cfg, model, optimizer, schedule, device, it, mesh)
 
 
-def make_seg_eval_step(cfg: Config):
-    """``step(model, batch, geo=None) -> logits`` at the original points
-    (device tensor, (point cap, classes)) of an ``eval_all`` batch:
-    :class:`SegBatch`, or :class:`RawSegBatch` with ``geo`` its geometry on
-    the device."""
-    cdtype = compute_dtype(cfg)
-    const_in = not cfg.input_color
-
-    @torch.no_grad()
-    def step(model: MinkUNet, batch, geo: Optional[UNetGeometry] = None):
-        dev = model.final.device
-        model.eval()
-        g = geo if geo is not None else geometry_to_device(batch.geo, dev)
-        x = torch.as_tensor(batch.feats, device=dev).to(cdtype)
-        out = model(x, g, constant_input=const_in)
-        inds = torch.as_tensor(batch.inds_reconstruct, device=dev).long()
-        return out.index_select(0, inds)
-
-    return step
-
-
 class SegSceneLogits:
-    """``scenes(sample) -> (logits, labels)``: one scene's fp32 logits and
-    labels at its original points, as NumPy arrays, its geometry built on
-    the device under ``device_geometry`` (``geometry.overflows`` counts the
-    scenes planned on the host instead), else on the host.  ``caps``: the
-    level caps of the scene's device geometry when a multi-GPU caller
-    shares them (``SceneGeometry.share_caps``), else the running caps."""
+    """``scenes(sample, caps=None) -> (logits, labels)``: one ``eval_all``
+    scene's fp32 logits and labels at its original points, as NumPy arrays,
+    on its geometry on the card (:meth:`SceneGeometry.on_card`)."""
 
     def __init__(self, cfg: Config, model: MinkUNet, device: torch.device,
                  mesh: Optional[Mesh] = None):
-        self.model = model
-        self.step = make_seg_eval_step(cfg)
+        self.cfg, self.model = cfg, model
         self.geometry = SceneGeometry(cfg, device, mesh)
 
+    @torch.no_grad()
     def __call__(self, sample, caps=None):
-        hit = self.geometry.device_batch(
+        batch, geo = self.geometry.on_card(
             lambda caps: assemble_raw_seg_batch([sample], caps=caps,
-                                                eval_all=True), caps)
-        if hit is not None:
-            batch, out = hit[0], self.step(self.model, *hit)
-        else:
-            batch = assemble_seg_batch([sample], eval_all=True)
-            out = self.step(self.model, batch)
+                                                eval_all=True),
+            lambda: assemble_seg_batch([sample], eval_all=True), caps)
+        dev = self.model.final.device
+        self.model.eval()
+        x = torch.as_tensor(batch.feats, device=dev).to(
+            compute_dtype(self.cfg))
+        out = self.model(x, geo, constant_input=not self.cfg.input_color)
         n = batch.num_points
-        return (out[:n].float().cpu().numpy(),
+        inds = torch.as_tensor(batch.inds_reconstruct[:n], device=dev).long()
+        return (out.index_select(0, inds).float().cpu().numpy(),
                 np.asarray(batch.point_labels[:n]))
 
 
-class SegTrainer(DeviceGeometryTraining):
+class SegTrainer(TrainerBase):
     def __init__(self, cfg: Config, device=None):
-        self._init_device_geometry(cfg, device, "train_seg")
+        self._init_rank(cfg, device, "train_seg")
         gen = torch.Generator().manual_seed(cfg.manual_seed)
         self.model = MinkUNet(3, cfg.classes, cfg.arch_3d,
                               generator=gen).to(self.device)

@@ -46,7 +46,7 @@ for the host plans.
 :mod:`.grid`.  The overflow flag (a 0-d bool tensor) is set when a coarse
 level outgrows its cap or a scene leaves the grid; the plans are then not
 valid and the caller builds the batch on the host instead
-(``runtime/distill.py``).  The JAX package's window plans are TPU layout
+(``runtime/geometry_route.py``).  The JAX package's window plans are TPU layout
 devices that the CUDA kernels do not read: ``windows=True`` raises.
 """
 

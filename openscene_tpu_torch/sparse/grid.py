@@ -20,8 +20,8 @@ gathers per column serve.
 
 Exactness: the plans are bit-identical to the NumPy builder's (same offset
 order, same spread-null formula; ``tests/test_torch_geometry_device.py``).
-A scene whose extent exceeds the grid sets ``overflow`` and the trainer
-builds that batch on the host (``runtime/distill.py``).
+A scene whose extent exceeds the grid sets ``overflow`` and the caller
+builds that batch on the host (``runtime/geometry_route.py``).
 """
 
 from __future__ import annotations

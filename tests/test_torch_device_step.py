@@ -8,9 +8,10 @@ set at 10 cm for the trainer's epoch).
   same plain versions on plans that are bit-identical, so nothing but the
   stem's occupancy (built directly, or compared from the stem plan) could
   differ, and it is exact.
-* An overflowing batch leaves the model, the optimizer and ``it`` as they
-  were, and the trainer's fallback trains it exactly as the host step does;
-  after ``grid_overflow_limit`` overflows in a row the grid prober is off.
+* An overflowing build leaves the model, the optimizer and ``it`` as they
+  were, and the trainer's route trains the batch exactly as the host step
+  does; after ``grid_overflow_limit`` overflows in a row the grid prober is
+  off.
 * The model with ``geo.stem_occ`` equals the model with the stem plan.
 * ``DistillTrainer``: ``device_geometry on`` trains an epoch on the CPU,
   ``auto`` on the CPU builds on the host.
@@ -21,12 +22,13 @@ import pytest
 import torch
 
 from openscene_tpu_torch.config import Config
-from openscene_tpu_torch.data.batch import (DistillBatch,
+from openscene_tpu_torch.data.batch import (DistillBatch, RawDistillBatch,
                                             assemble_distill_batch,
                                             assemble_raw_distill_batch)
 from openscene_tpu_torch.data.loaders import SceneSample
 from openscene_tpu_torch.models import MinkUNet
 from openscene_tpu_torch.runtime import distill as D
+from openscene_tpu_torch.runtime import geometry_route as G
 from openscene_tpu_torch.sparse.geometry import (GeometryCaps,
                                                  geometry_to_device)
 from openscene_tpu_torch.sparse.types import ConvPlan
@@ -87,9 +89,10 @@ def test_raw_step_equals_host_step(samples, n_scenes):
     step_h, step_r = _step(), _step()
     _assert_same_state(step_h.model.state_dict(), step_r.model.state_dict())
     loss_h = step_h(host)
-    loss_r, over = D.RawTrainStep(step_r, caps.fixed, n_scenes=n_scenes,
-                                  grid_dims0=GRID_DIMS0)(raw)
+    geo, over = G.RawTrainStep(step_r, caps.fixed, n_scenes=n_scenes,
+                               grid_dims0=GRID_DIMS0).geometry(raw)
     assert not over and torch.isfinite(loss_h)
+    loss_r = step_r.run(geo, *step_r.parts(raw))
     assert torch.equal(loss_r, loss_h)
     (gh, sh), (gr, sr) = _snapshot(step_h), _snapshot(step_r)
     _assert_same_state(gr, gh)
@@ -107,14 +110,14 @@ def test_overflow_leaves_state_and_falls_back_to_the_host(synth, tmp_path,
     tr, ref = (D.DistillTrainer(cfg, device="cpu") for _ in range(2))
     before = {k: v.clone() for k, v in tr.model.state_dict().items()}
 
-    loss, over = tr._raw_step(bad)(raw)
-    assert over and loss is None
+    _, over = tr.geometry.raw_step(tr.step_fn, bad).geometry(raw)
+    assert over
     _assert_same_state(tr.model.state_dict(), before)
     assert tr.step_fn.it == 0 and not tr.optimizer.state
 
     # the trainer builds the batch on the host and trains it there
     loss = tr.train_step((raw, bad))
-    hb = D.host_batch_from_raw(raw)
+    hb = G.host_batch_from_raw(raw)
     assert torch.equal(loss, ref.step_fn(hb))
     assert tr.overflows == 1 and tr.global_step == ref.global_step == 1
     _assert_same_state(tr.model.state_dict(), ref.model.state_dict())
@@ -141,14 +144,15 @@ def test_grid_disabled_after_overflow_limit(synth, tmp_path, head32,
                                            rng=np.random.default_rng(5))
     batch = (raw, caps.fixed)
     tr.train_step(batch)
-    assert tr.overflows == 1 and tr._grid_enabled
+    assert tr.overflows == 1 and tr.geometry.grid_enabled
     tr.train_step(batch)
-    assert tr.overflows == 2 and not tr._grid_enabled
-    assert tr._overflow_streak == 0
+    assert tr.overflows == 2 and not tr.geometry.grid_enabled
+    assert tr.geometry.overflow_streak == 0
     tr.train_step(batch)   # the search path has no grid to outgrow
     assert tr.overflows == 2 and tr.global_step == 3
-    assert set(tr._dg_steps) == {(caps.fixed, True), (caps.fixed, False)}
-    assert tr._dg_steps[(caps.fixed, False)].n_scenes is None
+    steps = tr.geometry.raw_steps
+    assert set(steps) == {(caps.fixed, True), (caps.fixed, False)}
+    assert steps[(caps.fixed, False)].n_scenes is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -175,14 +179,15 @@ def test_trainer_device_geometry_on_trains_an_epoch_on_cpu(synth, tmp_path,
                        batch_size=2, evaluate=False, grid_dims0=GRID_DIMS0,
                        voxel_size=0.1)
     tr = D.DistillTrainer(cfg, device="cpu")
-    assert tr.device_geometry
+    assert tr.geometry.on
     init = {k: v.clone() for k, v in tr.model.state_dict().items()}
     first = next(tr._epoch_batches())
     assert isinstance(first, tuple) and isinstance(first[0],
-                                                   D.RawDistillBatch)
+                                                   RawDistillBatch)
     tr.fit()
     assert tr.global_step == tr.batches_per_epoch and tr.overflows == 0
-    assert tr._grid_enabled and all(k[1] for k in tr._dg_steps)
+    assert tr.geometry.grid_enabled
+    assert all(k[1] for k in tr.geometry.raw_steps)
     assert any(not torch.equal(v, init[k])
                for k, v in tr.model.state_dict().items())
 
@@ -194,6 +199,6 @@ def test_trainer_device_geometry_setting_on_cpu(synth, tmp_path, head32,
     tr = D.DistillTrainer(_trainer_cfg(synth, tmp_path, evaluate=False,
                                        device_geometry=setting),
                           device="cpu")
-    assert tr.device_geometry == on
+    assert tr.geometry.on == on
     batch = next(tr._epoch_batches())
     assert isinstance(batch, DistillBatch) != on

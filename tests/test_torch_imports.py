@@ -9,6 +9,9 @@
 * Asking for CUDA, explicitly or by default, without CUDA raises, and a
   kernel wrapper given a tensor that is neither on the CPU nor on CUDA
   raises instead of taking the plain version.
+* The runtime's entry modules take the geometry route from
+  ``runtime/geometry_route.py``, never from one another, and only that
+  module builds geometry on the card.
 """
 
 import os
@@ -66,6 +69,7 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
     names = proc.stdout.split()  # every module was imported
     assert len(names) >= 60
     for mod in ("runtime.distill", "runtime.evaluate", "data.batch",
+                "runtime.geometry_route",
                 "utils.train_utils", "sparse.edge_conv",
                 "sparse.stencil_conv", "sparse.ops", "convert",
                 "sparse.geometry_device", "sparse.grid", "sparse.pack",
@@ -81,6 +85,34 @@ def test_port_imports_no_jax_and_no_openscene_tpu():
                 "scripts.eval_reference_checkpoint",
                 "scripts.decide_region_order", "scripts.make_synthetic_data"):
         assert "openscene_tpu_torch." + mod in names
+
+
+def test_entry_modules_share_one_geometry_route():
+    import ast
+    from openscene_tpu_torch.runtime import geometry_route
+    route = {n for n, v in vars(geometry_route).items()
+             if getattr(v, "__module__", "") == geometry_route.__name__}
+    assert route >= {"build_on_card", "RawTrainStep", "host_batch_from_raw",
+                     "TrainGeometry", "SceneGeometry", "rank_scene_rounds"}
+    entries = ("distill", "evaluate", "train_seg", "eval_seg")
+    runtime = os.path.join(REPO, "openscene_tpu_torch", "runtime")
+    builds = []
+    for name in sorted(os.listdir(runtime)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(runtime, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.ImportFrom) and node.module
+                    and node.module.split(".")[-1] in entries):
+                taken = route & {a.name for a in node.names}
+                assert not taken, (name, node.module, taken)
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                    and node.func.id in ("build_geometry_parts",
+                                         "with_host_counts")):
+                builds.append((name, node.func.id))
+    assert sorted(builds) == [("geometry_route.py", "build_geometry_parts"),
+                              ("geometry_route.py", "with_host_counts")]
 
 
 def test_cpu_forward_touches_no_other_device():

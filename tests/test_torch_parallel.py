@@ -65,6 +65,7 @@ from openscene_tpu_torch.parallel.mesh import (gather_head, get_mesh,
                                                head_columns, mesh_for,
                                                mesh_layout, shard_head)
 from openscene_tpu_torch.runtime import distill as D
+from openscene_tpu_torch.runtime.geometry_route import RawTrainStep
 from openscene_tpu_torch.sparse.geometry import (GeometryCaps, _bucket,
                                                  level_counts)
 
@@ -150,8 +151,10 @@ def _dp_steps(state_dict, host_batches, raw_batches):
             loss = step(host_batches[d])
         else:
             raw, caps = raw_batches[d]
-            loss, overflow = D.RawTrainStep(step, caps, n_scenes=1)(raw)
+            geo, overflow = RawTrainStep(step, caps, n_scenes=1).geometry(
+                raw)
             assert not overflow
+            loss = step.run(geo, *step.parts(raw))
         params, buffers = _snapshot(model, mesh)
         out[kind] = dict(loss=float(loss), params=params, buffers=buffers,
                          grads={n: p.grad.numpy().copy()
@@ -220,12 +223,12 @@ def _checkpoint_round_trip(cfg, state_dict, batch, mesh, path):
 
     tr = trainer()
     tr.step_fn(batch)
-    payload = D.DeviceGeometryTraining._checkpoint(tr, 1)
+    payload = D.TrainerBase._checkpoint(tr, 1)
     if mesh.is_main:
         torch.save(payload, path)
     dist.barrier()
     again = trainer()
-    epoch, best = D.DeviceGeometryTraining._resume(again, path)
+    epoch, best = D.TrainerBase._resume(again, path)
     cols = head_columns(mesh, DIM)
     final_i = list(dict(tr.model.named_parameters())).index("final")
     saved = payload["optimizer"]["state"][final_i]

@@ -49,8 +49,8 @@ from openscene_tpu_torch.parallel.mesh import get_mesh
 from openscene_tpu_torch.runtime import distill as D
 from openscene_tpu_torch.runtime import eval_seg as E
 from openscene_tpu_torch.runtime import train_seg as S
-from openscene_tpu_torch.runtime.evaluate import (SceneGeometry,
-                                                  ZeroShotEvaluator)
+from openscene_tpu_torch.runtime.evaluate import ZeroShotEvaluator
+from openscene_tpu_torch.runtime.geometry_route import SceneGeometry
 from openscene_tpu_torch.sparse.geometry import (GeometryCaps, _bucket,
                                                  level_counts)
 

@@ -300,7 +300,7 @@ def test_trainer_fits_checkpoints_and_resumes(synth, tmp_path):
     cfg = Config(**_base(synth, tmp_path, epochs=1, evaluate=True,
                          voxel_size=0.1))
     tr = S.SegTrainer(cfg, device="cpu")
-    assert not tr.device_geometry and tr.batches_per_epoch == 2
+    assert not tr.geometry.on and tr.batches_per_epoch == 2
     init = {k: v.clone() for k, v in tr.model.state_dict().items()}
     best = tr.fit()
     assert tr.global_step == 2 and 0.0 <= best <= 1.0
@@ -330,7 +330,7 @@ def test_trainer_on_device_geometry_trains(synth, tmp_path):
     cfg = Config(**_base(synth, tmp_path, epochs=1, device_geometry="on",
                          voxel_size=0.1))
     tr = S.SegTrainer(cfg, device="cpu")
-    assert tr.device_geometry
+    assert tr.geometry.on
     loss, miou = tr.train_epoch(0)
     assert np.isfinite(loss) and 0.0 <= miou <= 1.0
     assert tr.global_step == 2 and tr.overflows == 0
