@@ -91,9 +91,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    synthetic scenes at 2 cm, geometry built on the card, 3 steps with the
    launches counted per step as in 6; one step on a 2-scene batch through
    the kernels, the plain versions and fp32 as in 6 (SGD's updated
-   parameters held to the gradients' distance); ``runtime.eval_seg.
-   evaluate_seg`` on the 2 val scenes at one repeat, 32/4/4 launches per
-   scene: voxels/s and the mIoU of barely trained weights (a smoke value);
+   parameters held to the gradients' distance); the last 8-scene batch's
+   geometry through a new ``RawTrainStep`` of the trainer (the build
+   captured as a CUDA graph, then replayed) against the eager build bit
+   for bit, the replay at most 3 launch events inside ``geometry.build``
+   (the count's fill, the graph's launch), in a pool of its own and in
+   the trainer's shared pool, the build's host and device ms, the
+   replay's beside the eager build's, and each capture's bytes;
+   ``runtime.eval_seg.evaluate_seg`` on the 2 val scenes at one repeat,
+   32/4/4 launches per scene: voxels/s and the mIoU of barely trained
+   weights (a smoke value);
 8. drives multi-GPU (``parallel/``, one process per GPU): (a) NCCL at world
    size 1 through torchrun's environment (``maybe_initialize_distributed``):
    one distill step at ``data_parallel -1`` with the reductions running must
@@ -784,6 +791,161 @@ def geometry_phase(raw, caps, host_geo, t_numpy, card, host_dev):
             "build_search_ms": times["search"][0],
             "numpy_planner_ms": t_numpy * 1e3, "raw_geometry_bytes": raw_geo,
             "host_geometry_bytes": host_geo_bytes, "level0_bytes": common}
+
+
+GRAPH_LAUNCHES = 3   # a replayed build: the count's fill, the graph launch
+
+
+def geometry_leaves(x, name="geo"):
+    """(name, tensor or int) of every array and count of a geometry."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        yield name, x
+    elif isinstance(x, tuple) and hasattr(x, "_fields"):
+        for f in x._fields:
+            yield from geometry_leaves(getattr(x, f), f"{name}.{f}")
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            yield from geometry_leaves(v, f"{name}[{i}]")
+    elif x is not None:
+        yield name, int(x)
+
+
+def same_geometry(got, want, what):
+    """Raise unless two geometries hold the same arrays and counts, bit
+    for bit; returns how many they hold."""
+    import torch
+    got, want = dict(geometry_leaves(got)), dict(geometry_leaves(want))
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: arrays {sorted(set(got) ^ set(want))}")
+    for k, w in want.items():
+        g = got[k]
+        same = (g.dtype == w.dtype and torch.equal(g, w)
+                if isinstance(w, torch.Tensor) else g == w)
+        if not same:
+            raise AssertionError(f"{what}: {k} differs from the eager build")
+    return len(want)
+
+
+def build_span_trace(fn):
+    """One call of ``fn`` under the profiler: the launch events inside its
+    ``geometry.build`` range, the range's host ms and the device ms of the
+    work they launched (by correlation id)."""
+    import tempfile
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    rng = [e for e in events if e.get("cat") == "user_annotation"
+           and e.get("name") == "geometry.build"]
+    if len(rng) != 1:
+        raise AssertionError(f"{len(rng)} geometry.build ranges in a build")
+    a, b = rng[0]["ts"], rng[0]["ts"] + rng[0]["dur"]
+    launch = [e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and a <= e["ts"] <= b]
+    corr = {e.get("args", {}).get("correlation") for e in launch} - {None}
+    dev_us = sum(e.get("dur", 0) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and e.get("args", {}).get("correlation") in corr)
+    return {"launches": sum(1 for e in launch
+                            if "Launch" in str(e.get("name", ""))),
+            "host_ms": (b - a) / 1e3, "device_ms": dev_us / 1e3}
+
+
+def geometry_graph_check(trainer, raw, caps, card):
+    """A train batch's geometry through two new ``RawTrainStep``s of the
+    trainer (the build captured as a CUDA graph on the first call, then
+    replayed), one in its own pool and one in the pool of the trainer's
+    graphs, against the eager build, bit for bit, with no overflow, also
+    after the trainer's own graph replayed in between; profiled again, the
+    replay must make at most GRAPH_LAUNCHES launch events inside
+    ``geometry.build``.  Prints the build's host and device ms, the
+    replay's beside the eager build's, and the bytes each capture reserved
+    (the graph's own pool and input buffers; one more schedule in the
+    shared pool)."""
+    import torch
+    from openscene_tpu_torch.runtime.geometry_route import (RawTrainStep,
+                                                            build_on_card)
+    route = trainer.geometry
+    grid = dict(n_scenes=route.n_scenes if route.grid_enabled else None,
+                grid_dims0=tuple(trainer.cfg.grid_dims0) or None)
+    steps, pool, over = {}, {}, False
+    for what, handle in (("own", None), ("shared", route.pool)):
+        steps[what] = RawTrainStep(trainer.step_fn, caps, **grid,
+                                   pool=handle)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        over = steps[what].geometry(raw)[1] or over
+        torch.cuda.synchronize()
+        pool[what] = torch.cuda.memory_reserved() - reserved
+    rs = steps["own"]
+
+    def eager():
+        return build_on_card(rs.eager, raw.coords, raw.num)
+
+    want, want_over = eager()
+    if over or want_over or rs._graph is None:
+        raise AssertionError(f"geometry graph: overflow {over} (eager "
+                             f"{want_over}), graph {rs._graph is not None}")
+    n = same_geometry(rs.geometry(raw)[0], want, "geometry graph, replay")
+    # the shared pool: a graph replayed right after another graph of the
+    # pool still gives the eager plans
+    mine = route.raw_step(trainer.step_fn, caps)
+    for what, step in (("the trainer's", mine), ("one more", steps["shared"]),
+                       ("the trainer's", mine)):
+        same_geometry(step.geometry(raw)[0], want,
+                      f"geometry graph, replay of {what} in the shared pool")
+    rows = {}
+    for what, fn in (("replay", lambda: rs.geometry(raw)), ("eager", eager)):
+        fn()
+        rows[what] = build_span_trace(fn)
+    same_geometry(rs.geometry(raw)[0], want, "geometry graph, later replay")
+    # untraced: the host's ms to hand the build to the card (copy, count,
+    # launch; no wait), and the call's wall ms to its counts on the host
+    for what, launch, call in (
+            ("replay", lambda: rs._replay(raw.coords, raw.num),
+             lambda: rs.geometry(raw)),
+            ("eager", lambda: rs.eager(raw.coords, raw.num), eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launch()
+        rows[what]["untraced_host_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        rows[what]["untraced_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    if rows["replay"]["launches"] > GRAPH_LAUNCHES:
+        raise AssertionError(f"geometry graph: {rows['replay']['launches']} "
+                             f"launch events in a replayed build, want at "
+                             f"most {GRAPH_LAUNCHES}")
+    r, e = rows["replay"], rows["eager"]
+    print(f"geometry graph: {int(raw.num)} voxels of {trainer.cfg.batch_size}"
+          f" scenes (caps {tuple(caps)}, "
+          f"{'grid' if grid['n_scenes'] else 'search'}), replay bit-identical "
+          f"to the eager build ({n} arrays and counts), no overflow, in its "
+          f"own pool and in the trainer's; "
+          f"profiled, inside geometry.build: replay {r['launches']} launch "
+          f"events, host {r['host_ms']:.3f} ms, device {r['device_ms']:.3f} "
+          f"ms; eager {e['launches']} launch events, host "
+          f"{e['host_ms']:.3f} ms, device {e['device_ms']:.3f} ms; "
+          f"untraced host ms to launch (wall to the counts): replay "
+          f"{r['untraced_host_ms']:.3f} ({r['untraced_wall_ms']:.3f}), "
+          f"eager {e['untraced_host_ms']:.3f} ({e['untraced_wall_ms']:.3f}); "
+          f"reserved by the capture in its own pool {pool['own']} bytes "
+          f"({pool['own'] / 2**30:.2f} GiB), by one more schedule in the "
+          f"trainer's pool {pool['shared']} bytes "
+          f"({pool['shared'] / 2**30:.2f} GiB) [{card}]", flush=True)
+    return {"replay": r, "eager": e, "pool_bytes": pool["own"],
+            "shared_pool_bytes": pool["shared"], "arrays": n}
 
 
 def up_kernel_phase(geo):
@@ -1958,9 +2120,17 @@ def seg_phase(card, device):
     trainer = SegTrainer(cfg, device=device)
     if not trainer.geometry.on:
         raise AssertionError("device_geometry 'auto' is off on cuda")
+    seen = []
+
+    def recorded(batches):
+        for b in batches:
+            seen.append(b)
+            yield b
+
     launches, summary = train_phase(
-        trainer, trainer._epoch_batches(), card,
+        trainer, recorded(trainer._epoch_batches()), card,
         f"seg train {ARCH} 3->20 CE SGD bf16", steps=SEG_STEPS, falls=False)
+    graph = geometry_graph_check(trainer, *seen[-1], card)
     samples = [trainer.train_data.get(i) for i in range(2)]
     batch = assemble_seg_batch(samples, rng=np.random.default_rng(0),
                                shift=True)
@@ -1991,7 +2161,7 @@ def seg_phase(card, device):
           f"in {dt:.3f}s -> {voxels / dt:.1f} voxels/s, mIoU "
           f"{res['miou']:.4f} (after {SEG_STEPS} steps from random weights: "
           f"a smoke value, not an accuracy) [{card}]", flush=True)
-    return launches, {"train": summary, "parity": parity,
+    return launches, {"train": summary, "parity": parity, "graph": graph,
                       "eval": {"voxels": voxels, "seconds": dt,
                                "voxels_per_s": voxels / dt,
                                "miou": res["miou"]}}

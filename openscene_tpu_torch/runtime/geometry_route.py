@@ -12,6 +12,12 @@ is planned on the host.  Training (:class:`TrainGeometry`) drops the grid
 prober after ``grid_overflow_limit`` overflows in a row; the evaluators
 (:class:`SceneGeometry`) keep it, and under a mesh their data ranks share
 the running caps round by round (:func:`rank_scene_rounds`).
+
+On a CUDA device a trainer's build is one CUDA graph per cap schedule and
+grid state (:class:`RawTrainStep`), all in one memory pool: its some 7,800
+small kernels, which the host took longer to launch than the card to run,
+become one graph launch.  The evaluators' caps grow scene by scene, and
+their build stays eager.
 """
 
 from __future__ import annotations
@@ -37,36 +43,108 @@ from ..utils.train_utils import get_logger
 log = get_logger()
 
 
-def build_on_card(cfg: Config, device, coords, num, caps: Sequence[int],
-                  n_scenes: Optional[int] = None,
-                  grid_dims0: Optional[Tuple[int, int, int]] = None):
-    """``(geometry on the card with host level counts, overflow)`` of a
-    padded level-0 batch for ``caps``, by the grid of ``grid_dims0`` for
-    ``n_scenes`` scenes, else by the search; invalid under overflow."""
-    with span("geometry.build"):
-        geo, overflow = build_geometry_parts(
-            torch.as_tensor(coords, device=device), int(num), tuple(caps),
+def card_build(cfg: Config, device, caps: Sequence[int],
+               n_scenes: Optional[int] = None,
+               grid_dims0: Optional[Tuple[int, int, int]] = None):
+    """``build(coords, num) -> (geometry, overflow)``, counts as 0-d
+    tensors: ``build_geometry_parts`` of a padded level-0 batch on the card
+    for ``caps``, by the grid of ``grid_dims0`` for ``n_scenes`` scenes,
+    else by the search."""
+    def build(coords, num):
+        return build_geometry_parts(
+            torch.as_tensor(coords, device=device), num, tuple(caps),
             stem_occupancy=not cfg.input_color, n_scenes=n_scenes,
             grid_dims0=grid_dims0)
+    return build
+
+
+def build_on_card(build, coords, num):
+    """``(geometry on the card with host level counts, overflow)`` of
+    ``build(coords, num)`` (:func:`card_build`, or a captured build's
+    replay, :class:`RawTrainStep`); invalid under overflow."""
+    with span("geometry.build"):
+        geo, overflow = build(coords, num)
     return with_host_counts(geo, overflow)
 
 
 class RawTrainStep:
     """The geometry of a train ``step``'s raw batches
     (:class:`RawDistillBatch`, :class:`RawSegBatch`) on the card, for one
-    cap schedule ``caps`` and grid state (``n_scenes`` None: the search)."""
+    cap schedule ``caps`` and grid state (``n_scenes`` None: the search).
+
+    On a CUDA device the first call captures the build as a CUDA graph,
+    after one warm-up build, into the memory pool ``pool``
+    (a ``torch.cuda.graph_pool_handle()`` that every step of one
+    :class:`TrainGeometry` shares; None: the graph's own); every call, the
+    first included, copies the batch's coordinates into the graph's input
+    buffer, sets its 0-d voxel count with a fill kernel and replays the
+    graph on the current stream, after the previous step's work.  The
+    plans are those of the eager build (:attr:`eager`, the CPU's), bit for
+    bit.
+
+    The geometry :meth:`geometry` returns lives in the pool: it stays
+    valid until the next :meth:`geometry` call on any step of the pool (a
+    replay may write its scratch where another schedule's outputs lie).
+    Both trainers use it up inside ``train_step``; ``DistillTrainer.
+    _epoch_end_viz`` replays once more after the epoch's last step, which
+    the next step's replay then overwrites."""
 
     def __init__(self, step, caps: Sequence[int],
                  n_scenes: Optional[int] = None,
-                 grid_dims0: Optional[Tuple[int, int, int]] = None):
+                 grid_dims0: Optional[Tuple[int, int, int]] = None,
+                 pool=None):
         self.step, self.caps = step, tuple(int(c) for c in caps)
-        self.n_scenes, self.grid_dims0 = n_scenes, grid_dims0
+        self.n_scenes, self.grid_dims0, self.pool = n_scenes, grid_dims0, pool
+        self.eager = card_build(step.cfg, step.device, self.caps, n_scenes,
+                                grid_dims0)
+        self.replays = torch.device(step.device).type == "cuda"
+        self._coords = self._num = None  # the graph's input buffers
+        self._graph = None               # (CUDAGraph, geometry, overflow)
 
     def geometry(self, raw: RawDistillBatch):
         """(geometry on the card with host level counts, overflow)."""
-        return build_on_card(self.step.cfg, self.step.device, raw.coords,
-                             raw.num, self.caps, self.n_scenes,
-                             self.grid_dims0)
+        return build_on_card(self._replay if self.replays else self.eager,
+                             raw.coords, raw.num)
+
+    def _replay(self, coords, num):
+        """``(geometry, overflow)`` of the graph replayed on a batch's
+        level-0 ``coords`` and ``num``, captured on the first."""
+        if self._coords is None:
+            dev = self.step.device
+            self._coords = torch.empty((self.caps[0], 4), dtype=torch.int32,
+                                       device=dev)
+            self._num = torch.zeros((), dtype=torch.int64, device=dev)
+        self._coords.copy_(torch.as_tensor(coords))
+        self._num.fill_(int(num))
+        if self._graph is None:
+            self._graph = self._capture()
+        graph, geo, overflow = self._graph
+        with span("geometry.replay"):
+            graph.replay()
+        return geo, overflow
+
+    def _capture(self):
+        """``(graph, geometry, overflow)``: the build on the input buffers
+        (which hold the first batch) captured by ``torch.cuda.graph``.  The
+        warm-up build before it makes the per-device constants, which a
+        capture may not copy from the host.  It runs on the current stream
+        and so reuses that stream's cached blocks: on a side stream, as in
+        the ``torch.cuda.graphs`` recipe, it reserved blocks of its own,
+        which raised a train step's peak by up to 1.7 GB."""
+        with torch.cuda.device(self.step.device):
+            self.eager(self._coords, self._num)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the loader threads' host work may go on
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                geo, overflow = self.eager(self._coords, self._num)
+        return graph, geo, overflow
+
+    def release(self) -> None:
+        """Free the graph: its outputs go back to the pool; a later batch
+        would build eagerly."""
+        self.replays = False
+        self._coords = self._num = self._graph = None
 
 
 def host_batch_from_raw(raw):
@@ -130,7 +208,11 @@ class CardGeometry:
 class TrainGeometry(CardGeometry):
     """A trainer's route: the running caps that its loader threads grow,
     and one :class:`RawTrainStep` per cap schedule and grid state, by the
-    grid for ``n_scenes`` scenes a batch until it is dropped."""
+    grid for ``n_scenes`` scenes a batch until it is dropped.  On a CUDA
+    device their graphs share one memory pool, ``pool``: each geometry is
+    used up before the next build, so a schedule the caps outgrew holds
+    only its outputs there, and the pool's scratch is that of the largest
+    build."""
 
     def __init__(self, cfg: Config, device: torch.device, n_scenes: int):
         super().__init__(cfg, device)
@@ -138,6 +220,8 @@ class TrainGeometry(CardGeometry):
         self.caps: Optional[GeometryCaps] = None
         self._caps_lock = threading.Lock()
         self.raw_steps: Dict[Tuple, RawTrainStep] = {}
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if torch.device(device).type == "cuda" else None)
         self.grid_enabled = True
         self.overflow_streak = 0
 
@@ -158,7 +242,8 @@ class TrainGeometry(CardGeometry):
             self.raw_steps[key] = RawTrainStep(
                 step, caps,
                 n_scenes=self.n_scenes if self.grid_enabled else None,
-                grid_dims0=tuple(self.cfg.grid_dims0) or None)
+                grid_dims0=tuple(self.cfg.grid_dims0) or None,
+                pool=self.pool)
         return self.raw_steps[key]
 
     def on_card(self, step, batch):
@@ -183,6 +268,9 @@ class TrainGeometry(CardGeometry):
                         tuple(self.cfg.grid_dims0) or "default")
             self.grid_enabled = False
             self.overflow_streak = 0
+            for (_, grid), s in self.raw_steps.items():
+                if grid:  # no batch takes the grid again
+                    s.release()
 
 
 class SceneGeometry(CardGeometry):
@@ -216,9 +304,10 @@ class SceneGeometry(CardGeometry):
 
     def build(self, coords: np.ndarray, num, caps):
         """:func:`build_on_card` of one scene."""
-        return build_on_card(self.cfg, self.device, coords, num, caps,
-                             n_scenes=1,
-                             grid_dims0=tuple(self.cfg.grid_dims0) or None)
+        return build_on_card(
+            card_build(self.cfg, self.device, caps, n_scenes=1,
+                       grid_dims0=tuple(self.cfg.grid_dims0) or None),
+            coords, num)
 
     def on_card(self, assemble_raw, assemble_host, caps=None):
         """``(batch, its geometry on the card)`` of one scene:

@@ -13,7 +13,10 @@ neighbours and padded rows, the same parent ranks (tested in
 ``tests/test_torch_geometry_device.py``).
 
 Design (all shapes static, from the caps; each level's ``num`` is a 0-d
-tensor on the device, so the build never waits for the device):
+tensor on the device, so the build never waits for the device, and it
+copies nothing from the host: its constant index tables are made once per
+device, :func:`probe_deltas` and :func:`flip_perm_on`, so the build can be
+captured as a CUDA graph, ``runtime/geometry_route.py``):
 
 * **Keys**: one int64 per voxel, ``((b*2^16 + x+2^14)*2^16 + y+2^14)*2^16
   + z+2^14``.  The host packer keeps coordinates within +-2^14, so a stencil
@@ -52,6 +55,7 @@ devices that the CUDA kernels do not read: ``windows=True`` raises.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -158,9 +162,7 @@ class Probes:
         self.cols = cols
         self.key = key
         zm = _zmask(key, num)
-        delta = torch.tensor([(dx << 2 * _F) + (dy << _F) - r
-                              for dx, dy in cols], dtype=torch.int64,
-                             device=key.device)
+        delta = probe_deltas(tuple(cols), r, key.device)
         self.pos = torch.searchsorted(key, key[None, :] + delta[:, None])
         i = self.pos.clamp(max=cap - 1)
         self.a_key = key[i]
@@ -190,7 +192,19 @@ def _columns(kernel_size: int) -> List[Tuple[int, int]]:
                    stencil_offsets(kernel_size).tolist() if (dx, dy) != (0, 0)})
 
 
-def _flip(kernel_size: int, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def probe_deltas(cols: Tuple[Tuple[int, int], ...], r: int,
+                 device: torch.device) -> torch.Tensor:
+    """(len(cols),) int64 key deltas from a row to its (dx, dy) columns'
+    anchors at z - r, made once per device (read, never written)."""
+    return torch.tensor([(dx << 2 * _F) + (dy << _F) - r for dx, dy in cols],
+                        dtype=torch.int64, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def flip_perm_on(kernel_size: int, device: torch.device) -> torch.Tensor:
+    """A k-stencil's ``flip_perm`` on ``device``, made once per device and
+    shared by every plan (read, never written)."""
     return torch.as_tensor(flip_permutation(stencil_offsets(kernel_size)),
                            device=device)
 
@@ -221,7 +235,7 @@ def build_self_plan_device(coords: torch.Tensor, num: torch.Tensor,
             exists, row = probes.hits(dx, dy, dz)
         fwd.append(torch.where(valid & exists, row.to(torch.int32), nulls[k]))
     return ConvPlan(fwd=torch.stack(fwd),
-                    flip_perm=_flip(kernel_size, coords.device))
+                    flip_perm=flip_perm_on(kernel_size, coords.device))
 
 
 def build_stem_occupancy_device(coords: torch.Tensor, num: torch.Tensor,
@@ -311,7 +325,8 @@ def build_geometry_parts(coords: torch.Tensor, num, caps: Sequence[int],
     one wait for the device).
 
     coords: (caps[0], 4) int32, lex-sorted valid rows first, sentinel-padded
-    (``data/batch.py``); num: valid rows (int or 0-d tensor); caps: the
+    (``data/batch.py``); num: valid rows (an int, or a 0-d tensor on the
+    device, as a captured build's input); caps: the
     per-level capacities.  ``stem_occupancy=True`` builds the k=5 stem as a
     (K, cap0) bf16 occupancy matrix only (``geo.stem.fwd`` is None), for a
     constant-input model.  ``n_scenes`` switches the stencil probing to the
@@ -325,7 +340,9 @@ def build_geometry_parts(coords: torch.Tensor, num, caps: Sequence[int],
     if coords.shape[0] != caps[0]:
         raise ValueError(f"coords cap {coords.shape[0]} != caps[0] {caps[0]}")
     dev = coords.device
-    num = torch.as_tensor(num, dtype=torch.int64, device=dev)
+    num = (num.to(device=dev, dtype=torch.int64)
+           if isinstance(num, torch.Tensor)
+           else torch.full((), int(num), dtype=torch.int64, device=dev))
     levels = [LevelGeometry(coords=coords, num=num)]
     downs = []
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
@@ -337,7 +354,7 @@ def build_geometry_parts(coords: torch.Tensor, num, caps: Sequence[int],
         downs.append(plan)
 
     stem_occ = None
-    stem = ConvPlan(fwd=None, flip_perm=_flip(stem_kernel, dev))
+    stem = ConvPlan(fwd=None, flip_perm=flip_perm_on(stem_kernel, dev))
     if n_scenes is not None:
         from . import grid as gridmod
         dims0 = tuple(grid_dims0) if grid_dims0 else gridmod.DEFAULT_DIMS0

@@ -30,8 +30,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .geometry_device import null_rows, popcount
-from .types import ConvPlan, flip_permutation, stencil_offsets
+from .geometry_device import flip_perm_on, null_rows, popcount
+from .types import ConvPlan
 
 PAD = 2  # grid border so |dx|, |dy|, |dz| <= 2 probes never leave the array
 
@@ -179,14 +179,14 @@ def _grid_plans(g: LevelGrid, num, r_big: int, big: str, want_k3: bool):
                                                          nulls3[k3]))
     out_wide = None
     if big == "plan":
-        out_wide = ConvPlan(fwd=torch.stack(wide), flip_perm=torch.as_tensor(
-            flip_permutation(stencil_offsets(2 * r_big + 1)), device=dev))
+        out_wide = ConvPlan(fwd=torch.stack(wide),
+                            flip_perm=flip_perm_on(2 * r_big + 1, dev))
     elif big == "occ":
         out_wide = torch.stack(wide).to(torch.bfloat16)
     out_small = None
     if want_k3:
-        out_small = ConvPlan(fwd=torch.stack(small), flip_perm=torch.as_tensor(
-            flip_permutation(stencil_offsets(3)), device=dev))
+        out_small = ConvPlan(fwd=torch.stack(small),
+                             flip_perm=flip_perm_on(3, dev))
     return out_wide, out_small
 
 
