@@ -84,7 +84,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    the plain bf16 path's are (``compare_train_step`` states the limits and
    why bf16 noise is measured rather than assumed).  The host ms to load
    and assemble a raw 2-scene train batch, in a child process with the
-   package's allocator tuning (``utils/hostmem``) and in one without;
+   package's allocator tuning (``utils/hostmem``) and in one without.
+   Then Point Transformer V3 (PT-v3m1) at the PTv3 cell's size: the
+   trainer of ``benchmark/configs/scannet_openseg_ptv3.json`` on that
+   cell's rooms (``benchmark/data.py``, its workload's 3 batches of 8
+   rooms), 3 steps through the same loop, the launches counted per step:
+   one stencil conv forward and backward and one attention forward and 2
+   backward launches per block, 3 + 3 BatchNorm launches per BatchNorm,
+   finite losses, no overflow.  Then its attention kernels
+   (``scripts/dev_attn_bench.bench_attn``, forward and backward) at
+   levels 0 and 3 of that run's first batch, each level's voxels a scene
+   read from its coordinates, beside their plain version and the
+   library's padded attention; within 2e-2 (3e-2 for the gradients) of
+   the plain version's largest value, bit-equal twice, 1 + 2 launches;
 7. drives supervised segmentation: ``runtime.train_seg.SegTrainer`` on
    ``cuda`` with ``configs/scannet/mink.yaml`` (MinkUNet18A, 3 -> 20
    classes, cross-entropy, SGD, constant input, bf16) on batches of its 8
@@ -193,11 +205,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 13. runs the per-op benchmark (``scripts/dev_bench_ops.bench_ops``) on the
    train batch with few iterations: each up conv forward and
    forward+backward by the model's route against the dense route;
-14. prints the eval, train, hostmem, seg, dist, fusion, spatial, resnet,
-   exports, drill and BatchNorm summaries, the card line, one ``{"kernels": [...]}``
-   JSON line (each kernel's launches on the main paths, the spatial,
-   ResNet and drill paths included), and last ``{"ok": true, "device":
-   {...}}``.
+14. prints the eval, train, hostmem, ptv3, seg, dist, fusion, spatial,
+   resnet, exports, drill, BatchNorm and attention summaries, the card
+   line, one ``{"kernels": [...]}`` JSON line (each kernel's launches on
+   the main paths, the spatial, ResNet, drill and PTv3 paths included,
+   the attention's measured in the PTv3 train steps), and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It also exits non-zero when CUDA is unavailable, or when the port's
@@ -1210,8 +1223,24 @@ def bn_modules(model):
                for m in model.modules())
 
 
+def attn_wrappers():
+    """The patch attention's two kernel wrappers (1 forward and 2 backward
+    launches per attention)."""
+    from openscene_tpu_torch.sparse.patch_attn import (patch_attn_bwd,
+                                                       patch_attn_fwd)
+    return patch_attn_fwd, patch_attn_bwd
+
+
+def attn_counts():
+    return tuple(w.launches for w in attn_wrappers())
+
+
+def attn_modules(model):
+    return sum(type(m).__name__ == "Attention" for m in model.modules())
+
+
 def zero_counts():
-    for w in (*wrappers().values(), *bn_wrappers()):
+    for w in (*wrappers().values(), *bn_wrappers(), *attn_wrappers()):
         w.launches = 0
 
 
@@ -1235,16 +1264,20 @@ TRAIN_LAUNCHES = {"stencil_conv_fwd": STENCILS_PER_FORWARD,
 
 
 def train_phase(trainer, batches, card, what, steps=TRAIN_STEPS,
-                falls=True):
+                falls=True, want=TRAIN_LAUNCHES):
     """``steps`` steps of a trainer on ``cuda`` through
     ``trainer.train_step``, device geometry on: raw batches, geometry built
     on the card.  Returns the launches counted and a summary.  ``batches``
     yields ``(raw batch, caps)`` (host loading and assembly are timed around
-    ``next``); ``falls``: the last loss must be below the first."""
+    ``next``); ``falls``: the last loss must be below the first; ``want``:
+    the conv wrappers' launches a step."""
     import math
     import torch
-    total = dict.fromkeys((*wrappers(), "masked_batch_norm"), 0)
+    total = dict.fromkeys((*wrappers(), "masked_batch_norm", "patch_attn"),
+                          0)
     want_bn = (3 * bn_modules(trainer.model),) * 2
+    n_attn = attn_modules(trainer.model)
+    want_attn = (n_attn, 2 * n_attn)
     losses, voxels, t_host, t_dev = [], 0, 0.0, 0.0
     overflows = trainer.overflows
     t_all = time.time()
@@ -1261,17 +1294,22 @@ def train_phase(trainer, batches, card, what, steps=TRAIN_STEPS,
         torch.cuda.synchronize()
         dev = time.time() - t0
         got = read_counts()
-        if got != expected(TRAIN_LAUNCHES):
+        if got != expected(want):
             raise AssertionError(f"train step {i}: launches {got}, want "
-                                 f"{expected(TRAIN_LAUNCHES)}")
+                                 f"{expected(want)}")
         if bn_counts() != want_bn:
             raise AssertionError(f"train step {i}: BatchNorm kernel "
                                  f"launches {bn_counts()}, want {want_bn}")
+        if attn_counts() != want_attn:
+            raise AssertionError(f"train step {i}: attention kernel "
+                                 f"launches {attn_counts()}, want "
+                                 f"{want_attn}")
         if not math.isfinite(loss):
             raise AssertionError(f"train step {i}: loss {loss}")
         for k in got:
             total[k] += got[k]
         total["masked_batch_norm"] += sum(bn_counts())
+        total["patch_attn"] += sum(attn_counts())
         losses.append(loss)
         voxels += int(raw.num)
         t_host += host
@@ -1295,6 +1333,88 @@ def train_phase(trainer, batches, card, what, steps=TRAIN_STEPS,
           f"{t_host:.3f}s, device steps {t_dev:.3f}s; step 0 includes the "
           f"allocator's warm-up), 0 overflows [{card}]", flush=True)
     return total, summary
+
+
+PTV3_CELL = "distill_step.scannet_openseg_ptv3"
+
+
+def level_scenes(coords, num, levels=5):
+    """Each level's voxels a scene of a level-0 (scene, x, y, z) array:
+    level ``l`` holds the distinct ``coord >> l`` of each scene."""
+    import numpy as np
+    c = np.asarray(coords[:num]).astype(np.int64)
+    scenes = int(c[:, 0].max()) + 1
+    out = []
+    for lvl in range(levels):
+        u = np.unique(np.c_[c[:, :1], c[:, 1:] >> lvl], axis=0)
+        out.append(np.bincount(u[:, 0], minlength=scenes).tolist())
+    return out
+
+
+def ptv3_phase(card, device):
+    """PT-v3m1 at the PTv3 cell's size: the trainer of its configuration
+    on its workload's rooms, :data:`TRAIN_STEPS` steps through
+    :func:`train_phase` (every launch counted), then the attention kernels
+    at levels 0 and 3 of the first batch.  Returns the launches, the
+    summary and ``bench_attn``'s rows."""
+    import torch
+    from benchmark import data
+    from openscene_tpu_torch.config import Config
+    from openscene_tpu_torch.runtime.distill import DistillTrainer
+    from openscene_tpu_torch.scripts.dev_attn_bench import (bench_attn,
+                                                            cell_levels)
+    bench = os.path.join(HERE, "benchmark")
+    with open(os.path.join(bench, "workloads", PTV3_CELL + ".json")) as f:
+        wl = json.load(f)
+    with open(os.path.join(bench, "configs", wl["config"] + ".json")) as f:
+        cfg = json.load(f)
+    root = os.path.join(HERE, "build", "smoke_ptv3_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ds = data.write(root, wl, 0, device, dim=cfg["feature_dim"],
+                    num_classes=cfg["classes"],
+                    fused_dir="scannet_multiview_openseg")
+    trainer = DistillTrainer(Config(
+        data_root=ds.data_root, data_root_2d_fused_feature=ds.fused_root,
+        feature_2d_extractor=cfg["feature_2d_extractor"],
+        classes=cfg["classes"], arch_3d=cfg["arch_3d"],
+        voxel_size=cfg["voxel_size"], aug=cfg["aug"],
+        input_color=cfg["input_color"], use_shm=cfg["use_shm"],
+        workers=cfg["workers"], batch_size=cfg["batch_size"],
+        base_lr=cfg["base_lr"], loss_type=cfg["loss_type"],
+        loop=wl["loop"], epochs=cfg["epochs"], power=cfg["power"],
+        compute_dtype=cfg["compute_dtype"], evaluate=False, manual_seed=0,
+        save_path="", embedding_file=ds.text_file, text_embedding_cache=""),
+        device=device)
+    batches = list(trainer._epoch_batches())
+    print(f"ptv3: {len(batches)} batches of {cfg['batch_size']} rooms "
+          f"written and assembled in {time.time() - t0:.1f}s", flush=True)
+    blocks = attn_modules(trainer.model)
+    launches, summary = train_phase(
+        trainer, iter(batches), card,
+        f"train {cfg['arch_3d']} 3->{cfg['feature_dim']} cosine Adam bf16",
+        falls=False, want={"stencil_conv_fwd": blocks,
+                           "stencil_conv_bwd": blocks})
+    raw, _ = batches[0]
+    scenes = level_scenes(raw.coords, int(raw.num))
+    summary["first_batch_voxels_a_scene"] = scenes
+    summary["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del trainer, batches, raw
+    torch.cuda.empty_cache()
+    rows = bench_attn(cell_levels(scenes))
+    for r in rows:
+        print(f"kernel patch_attn {r['shape']} (bf16, forward and "
+              f"backward): {r['ms']:.4f} ms (forward {r['fwd_ms']:.4f}, "
+              f"backward {r['bwd_ms']:.4f}), plain {r['plain_ms']:.4f}, "
+              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}, {r['roofline_pct']:.1f}%), error of the "
+              f"largest value: {json.dumps(r['rel_err'])}; bit-equal, "
+              f"launches 1 + 2 [{card}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, summary, rows
 
 
 def host_batch_from_caps(raw, caps):
@@ -3670,6 +3790,7 @@ def main():
     exports_stats = exports_phase(trainer, pbatch, d3, dfeat, card, device)
     del trainer, batches, host_batch
     hostmem_stats = hostmem_phase(d3, dfeat, card)
+    ptv3_launches, ptv3_summary, attn_rows = ptv3_phase(card, device)
 
     # ---- 5. supervised segmentation: train and eval, mink.yaml ----
     seg_launches, seg_stats = seg_phase(card, device)
@@ -3759,6 +3880,21 @@ def main():
         "library_ms": bn_rows[0]["library_ms"],
         "main_path": "sparse/batch_norm.py:MaskedBatchNormKernelFn",
         "shapes": bn_rows})
+    kernels.append({
+        "name": "patch_attn", "route": "cuda",
+        "source": "openscene_tpu_torch/csrc/patch_attn.cu",
+        "replaces": "no pallas_call (the JAX package has no Point "
+                    "Transformer)",
+        "model": "PTv3m1",
+        "launches_per_train_step": (ptv3_launches["patch_attn"]
+                                    / TRAIN_STEPS),
+        "rel_err": attn_rows[0]["rel_err"],
+        "ms": attn_rows[0]["ms"], "plain_ms": attn_rows[0]["plain_ms"],
+        "bound_ms": attn_rows[0]["bound_ms"],
+        "bound_by": attn_rows[0]["bound_by"],
+        "library_ms": attn_rows[0]["library_ms"],
+        "main_path": "sparse/patch_attn.py:PatchAttention",
+        "shapes": attn_rows})
     print(f"skip plans: {json.dumps(skip_stats)}", flush=True)
     print(f"geometry: {json.dumps(geo_stats)}; host assembly ms raw "
           f"{t_raw_asm:.1f}, host geometry {t_host_asm:.1f}", flush=True)
@@ -3766,6 +3902,7 @@ def main():
           flush=True)
     print(f"train: {json.dumps(train_summary)}; hostmem: "
           f"{json.dumps(hostmem_stats)}", flush=True)
+    print(f"ptv3: {json.dumps(ptv3_summary)}", flush=True)
     print(f"seg: {json.dumps(seg_stats)}", flush=True)
     print(f"dist: {json.dumps(dist_stats)}", flush=True)
     print(f"fusion: {json.dumps(fusion_stats)}", flush=True)
@@ -3774,6 +3911,7 @@ def main():
     print(f"exports: {json.dumps(exports_stats)}", flush=True)
     print(f"drill: {json.dumps(drill_stats)}", flush=True)
     print(f"bn: {json.dumps(bn_rows)}", flush=True)
+    print(f"attn: {json.dumps(attn_rows)}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

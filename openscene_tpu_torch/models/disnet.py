@@ -2,7 +2,8 @@
 
 Picks the CLIP-space output dimension from the 2D feature extractor
 (openseg -> 768, lseg -> 512) and builds a sparse UNet with 3 input channels
-(reference ``models/disnet.py:21-40``).
+(reference ``models/disnet.py:21-40``), or a Point Transformer V3
+(``models/ptv3.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from .ptv3 import ARCHS as PTV3_ARCHS
+from .ptv3 import PTv3
 from .sparse_unet import MinkUNet
 
 FEATURE_DIMS = {"openseg": 768, "lseg": 512}
@@ -23,8 +26,13 @@ def output_dim(feature_2d_extractor: str) -> int:
     raise NotImplementedError(feature_2d_extractor)
 
 
-def build_disnet(cfg, generator: Optional[torch.Generator] = None
-                 ) -> MinkUNet:
-    """The distillation model of a Config, randomly initialised."""
-    return MinkUNet(3, output_dim(cfg.feature_2d_extractor), cfg.arch_3d,
-                    generator=generator)
+def build_disnet(cfg, generator: Optional[torch.Generator] = None):
+    """The distillation model of a Config, randomly initialised: a
+    :class:`PTv3` for a Point Transformer V3 ``arch_3d`` (its shuffles
+    and DropPath seeded by ``cfg.manual_seed``), else a
+    :class:`MinkUNet`."""
+    dim = output_dim(cfg.feature_2d_extractor)
+    if cfg.arch_3d in PTV3_ARCHS:
+        return PTv3(3, dim, cfg.arch_3d, generator=generator,
+                    seed=cfg.manual_seed)
+    return MinkUNet(3, dim, cfg.arch_3d, generator=generator)

@@ -121,10 +121,12 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows of a padded buffer, output re-masked;
     see sparse/ops.py:masked_batch_norm.  Eval mode normalises with the
     running statistics; training mode with the batch's and moves the
-    ``mean``/``var`` buffers towards them (momentum 0.1, unbiased variance)."""
+    ``mean``/``var`` buffers towards them (``momentum``, unbiased variance;
+    ``eps`` under the square root)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
+        self.eps, self.momentum = eps, momentum
         self.gamma = nn.Parameter(torch.ones(c))
         self.beta = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
@@ -142,7 +144,8 @@ class MaskedBatchNorm(nn.Module):
         fold = relu and self.training and x.is_cuda
         out, mean, var = masked_batch_norm(
             x, mask, num, self.gamma, self.beta, self.mean, self.var,
-            train=self.training, **({"relu": True} if fold else {}))
+            train=self.training, momentum=self.momentum, eps=self.eps,
+            **({"relu": True} if fold else {}))
         if self.training and mean is not self.mean:
             with torch.no_grad():
                 self.mean.copy_(mean)

@@ -62,7 +62,8 @@ from ..data.loaders import FusedFeatureLoader, Point3DLoader
 from ..data.sharded import rank_indices
 from ..device import resolve_device
 from ..labels import labelset_and_palette
-from ..models.disnet import output_dim
+from ..models.disnet import build_disnet, output_dim
+from ..models.ptv3 import serial_patch
 from ..models.sparse_unet import MinkUNet
 from ..parallel import launch
 from ..parallel.mesh import (Mesh, average_buffers, average_gradients,
@@ -210,8 +211,11 @@ class TrainStep:
         mask = torch.as_tensor(mask, device=dev)
         group = (self.mesh.model_group if model_axis_size(self.mesh) > 1
                  else None)
+        # a model with DropPath keys its masks by the update count
+        step = ({"step": self.it} if getattr(self.model, "takes_step", False)
+                else {})
         feats = self.model(x, geo, constant_input=not cfg.input_color,
-                           return_prehead=True)
+                           return_prehead=True, **step)
         if cfg.loss_type == "cosine" and cfg.memory_efficient_loss:
             return cosine_head_loss(feats, self.model.final, target, mask,
                                     group=group)
@@ -242,8 +246,9 @@ class TrainStep:
         return loss.detach()
 
     def __call__(self, batch: DistillBatch) -> torch.Tensor:
-        return self.run(geometry_to_device(batch.geo, self.device),
-                        *self.parts(batch))
+        return self.run(geometry_to_device(
+            batch.geo, self.device, serial_patch(self.cfg.arch_3d)),
+            *self.parts(batch))
 
 
 def make_train_step(cfg: Config, model: MinkUNet,
@@ -264,12 +269,13 @@ def make_val_step(cfg: Config, mesh: Optional[Mesh] = None):
     const_in = not cfg.input_color
     classes, ignore = cfg.classes, cfg.ignore_label
     group = mesh.model_group if model_axis_size(mesh) > 1 else None
+    patch = serial_patch(cfg.arch_3d)
 
     @torch.no_grad()
     def step(model: MinkUNet, text: torch.Tensor, batch: SegBatch):
         dev = text.device
         model.eval()
-        geo = geometry_to_device(batch.geo, dev)
+        geo = geometry_to_device(batch.geo, dev, patch)
         x = torch.as_tensor(batch.feats, device=dev).to(cdtype)
         out = model(x, geo, constant_input=const_in)
         logits_v = out @ head_shard(text, mesh).t().float()
@@ -428,10 +434,13 @@ class DistillTrainer(TrainerBase):
         if self.dim % max(cfg.model_parallel, 1):
             raise ValueError(f"model_parallel={cfg.model_parallel} must "
                              f"divide the distill head's D={self.dim}")
+        if serial_patch(cfg.arch_3d) is not None and cfg.model_parallel > 1:
+            raise ValueError(f"{cfg.arch_3d} trains on one model rank; "
+                             f"model_parallel={cfg.model_parallel} shards "
+                             f"only the MinkUNet heads")
         self._init_rank(cfg, device, "distill", cfg.model_parallel)
         gen = torch.Generator().manual_seed(cfg.manual_seed)
-        self.model = MinkUNet(3, self.dim, cfg.arch_3d,
-                              generator=gen).to(self.device)
+        self.model = build_disnet(cfg, gen).to(self.device)
         replicate(self.model, self.mesh)
         shard_head(self.model, self.mesh)
         if cfg.sync_bn and self.mesh is None:
@@ -526,10 +535,11 @@ class DistillTrainer(TrainerBase):
         ``pred_{epoch}.ply`` and ``gt_{epoch}.ply``, at the level-0 voxel
         coordinates of scene 0's voxels that have targets.  The model runs
         in eval mode on the batch's geometry on the card
-        (:meth:`TrainGeometry.on_card`)."""
+        (:meth:`TrainGeometry.on_card`, as an export: the step counted the
+        batch's overflow already)."""
         from ..utils.viz import export_labeled_cloud
         dev = self.device
-        batch, geo = self.geometry.on_card(self.step_fn, batch)
+        batch, geo = self.geometry.on_card(self.step_fn, batch, export=True)
         n = int(geo.levels[0].num)
         coords = geo.levels[0].coords[:n].cpu().numpy()
         rows = (np.asarray(batch.mask[:n]) > 0) & (coords[:, 0] == 0)

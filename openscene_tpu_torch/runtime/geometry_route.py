@@ -33,6 +33,7 @@ from ..data.batch import (DistillBatch, RawDistillBatch, RawSegBatch,
                           SegBatch, eval_level_counts, merge_counts)
 from ..data.prefetch import Prefetcher
 from ..device import device_geometry_on
+from ..models.ptv3 import serial_patch
 from ..parallel.mesh import Mesh, all_gather_rows
 from ..sparse.geometry import (GeometryCaps, build_unet_geometry,
                                geometry_to_device)
@@ -45,16 +46,22 @@ log = get_logger()
 
 def card_build(cfg: Config, device, caps: Sequence[int],
                n_scenes: Optional[int] = None,
-               grid_dims0: Optional[Tuple[int, int, int]] = None):
+               grid_dims0: Optional[Tuple[int, int, int]] = None,
+               batch_scenes: int = 1):
     """``build(coords, num) -> (geometry, overflow)``, counts as 0-d
     tensors: ``build_geometry_parts`` of a padded level-0 batch on the card
     for ``caps``, by the grid of ``grid_dims0`` for ``n_scenes`` scenes,
-    else by the search."""
+    else by the search; with the serialization of ``cfg.arch_3d`` for
+    batches of up to ``batch_scenes`` scenes where the model reads one
+    (``models/ptv3.py``)."""
+    patch = serial_patch(cfg.arch_3d)
+    serial = None if patch is None else (patch, batch_scenes)
+
     def build(coords, num):
         return build_geometry_parts(
             torch.as_tensor(coords, device=device), num, tuple(caps),
             stem_occupancy=not cfg.input_color, n_scenes=n_scenes,
-            grid_dims0=grid_dims0)
+            grid_dims0=grid_dims0, serial=serial)
     return build
 
 
@@ -92,11 +99,11 @@ class RawTrainStep:
     def __init__(self, step, caps: Sequence[int],
                  n_scenes: Optional[int] = None,
                  grid_dims0: Optional[Tuple[int, int, int]] = None,
-                 pool=None):
+                 pool=None, batch_scenes: int = 1):
         self.step, self.caps = step, tuple(int(c) for c in caps)
         self.n_scenes, self.grid_dims0, self.pool = n_scenes, grid_dims0, pool
         self.eager = card_build(step.cfg, step.device, self.caps, n_scenes,
-                                grid_dims0)
+                                grid_dims0, batch_scenes)
         self.replays = torch.device(step.device).type == "cuda"
         self._coords = self._num = None  # the graph's input buffers
         self._graph = None               # (CUDAGraph, geometry, overflow)
@@ -182,20 +189,25 @@ class CardGeometry:
         self.cfg, self.device = cfg, device
         self.on = device_geometry_on(cfg.device_geometry, device)
         self.overflows = 0
+        self.patch = serial_patch(cfg.arch_3d)  # None: no serialization
 
-    def route(self, raw, built, host_batch, caps):
+    def route(self, raw, built, host_batch, caps, count: bool = True):
         """``(batch, its geometry on the card)``: ``raw`` on ``built``, its
         ``(geometry, overflow)`` for ``caps``, or after an overflow
-        :meth:`on_host` of ``host_batch()``."""
+        :meth:`on_host` of ``host_batch()``.  ``count=False``: a batch
+        built again (the trainer's epoch-end export), which moves no
+        counter of the steps."""
         geo, overflow = built
-        self._count(overflow, caps)
+        if count:
+            self._count(overflow, caps)
         if not overflow:
             return raw, geo
         return self.on_host(host_batch())
 
     def on_host(self, batch):
-        """``(batch, its host plans on the card)``."""
-        return batch, geometry_to_device(batch.geo, self.device)
+        """``(batch, its host plans on the card)``, with the serialization
+        where ``cfg.arch_3d`` reads one."""
+        return batch, geometry_to_device(batch.geo, self.device, self.patch)
 
     def _count(self, overflow: bool, caps) -> None:
         if overflow:
@@ -224,6 +236,7 @@ class TrainGeometry(CardGeometry):
                      if torch.device(device).type == "cuda" else None)
         self.grid_enabled = True
         self.overflow_streak = 0
+        self.export_overflows = 0  # exports built on the host
 
     def raw_batch(self, assemble_raw, samples):
         """``(raw batch, its caps)`` of ``assemble_raw(samples, caps)`` on
@@ -243,18 +256,24 @@ class TrainGeometry(CardGeometry):
                 step, caps,
                 n_scenes=self.n_scenes if self.grid_enabled else None,
                 grid_dims0=tuple(self.cfg.grid_dims0) or None,
-                pool=self.pool)
+                pool=self.pool, batch_scenes=self.n_scenes)
         return self.raw_steps[key]
 
-    def on_card(self, step, batch):
+    def on_card(self, step, batch, export: bool = False):
         """``(batch, its geometry on the card)`` of a host batch or a
         ``(raw batch, caps)``, whose host builder is
-        :func:`host_batch_from_raw`."""
+        :func:`host_batch_from_raw`.  ``export``: a batch a step has
+        already counted, built again for the epoch-end export: its
+        overflow counts in ``export_overflows`` alone, and the streak
+        that drops the grid stays as the steps left it."""
         if isinstance(batch, (DistillBatch, SegBatch)):
             return self.on_host(batch)
         raw, caps = batch
-        return self.route(raw, self.raw_step(step, caps).geometry(raw),
-                          lambda: host_batch_from_raw(raw), caps)
+        built = self.raw_step(step, caps).geometry(raw)
+        if export and built[1]:
+            self.export_overflows += 1
+        return self.route(raw, built, lambda: host_batch_from_raw(raw), caps,
+                          count=not export)
 
     def _count(self, overflow: bool, caps) -> None:
         super()._count(overflow, caps)

@@ -42,6 +42,7 @@ from ..config import Config, load_cli
 from ..data.batch import (SegBatch, assemble_raw_seg_batch,
                           assemble_seg_batch)
 from ..data.loaders import Point3DLoader
+from ..models.ptv3 import serial_patch
 from ..models.sparse_unet import MinkUNet
 from ..parallel import launch
 from ..parallel.mesh import Mesh, replicate, sum_over_data
@@ -162,6 +163,10 @@ class SegSceneLogits:
 
 class SegTrainer(TrainerBase):
     def __init__(self, cfg: Config, device=None):
+        if serial_patch(cfg.arch_3d) is not None:
+            raise ValueError(f"{cfg.arch_3d} is a distillation backbone "
+                             f"here (runtime/distill.py); the supervised "
+                             f"trainer runs the MinkUNets")
         self._init_rank(cfg, device, "train_seg")
         gen = torch.Generator().manual_seed(cfg.manual_seed)
         self.model = MinkUNet(3, cfg.classes, cfg.arch_3d,

@@ -29,6 +29,7 @@ import torch
 
 from . import native
 from .edge_conv import with_edge_layouts
+from .serialize import serialize_levels
 from .stencil_conv import build_conv_skip
 from .types import (ConvPlan, DownPlan, LevelGeometry, UNetGeometry,
                     flip_permutation, stencil_offsets)
@@ -284,7 +285,8 @@ def _check_rows(fwd: np.ndarray, rows_in: int, what: str) -> None:
         raise ValueError(f"{what}: gather index outside [0, {rows_in})")
 
 
-def geometry_to_device(geo: UNetGeometry, device) -> UNetGeometry:
+def geometry_to_device(geo: UNetGeometry, device,
+                       patch: Optional[int] = None) -> UNetGeometry:
     """The same geometry with every plan array as an int32 tensor on
     ``device``; each level's ``num`` stays a host int (it sizes masks and
     BatchNorm statistics without a device round trip).  Each k=3 plan gets
@@ -292,7 +294,11 @@ def geometry_to_device(geo: UNetGeometry, device) -> UNetGeometry:
     groups and skip plan (``edge_conv.with_edge_layouts``), built on
     ``device``, bit-identical to the ones
     ``geometry_device.build_geometry_parts`` builds for the same plans.
-    Raises if a gather index lies outside its source level."""
+    ``patch``: the patch size of a serialized model (Point Transformer
+    V3), whose orders and patch layouts (``serialize.serialize_levels``,
+    for the scenes the host coordinates hold) go into ``serial``; None
+    (the UNets) builds none.  Raises if a gather index lies outside its
+    source level."""
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
 
@@ -310,14 +316,21 @@ def geometry_to_device(geo: UNetGeometry, device) -> UNetGeometry:
         _check_rows(np.asarray(d.child_parent), caps[e + 1],
                     f"down[{e}].child_parent")
 
+    levels = tuple(LevelGeometry(coords=t(l.coords), num=int(l.num))
+                   for l in geo.levels)
+    down = tuple(with_edge_layouts(
+        DownPlan(fwd=t(d.fwd), child_parent=t(d.child_parent),
+                 child_offset=t(d.child_offset)),
+        int(geo.levels[e].num), int(geo.levels[e + 1].num))
+        for e, d in enumerate(geo.down))
+    serial = ()
+    if patch is not None:
+        n0 = int(geo.levels[0].num)
+        scene = np.asarray(geo.levels[0].coords)[:n0, 0]
+        serial = serialize_levels(levels, down, patch,
+                                  int(scene.max()) + 1 if n0 else 1)
     return UNetGeometry(
-        levels=tuple(LevelGeometry(coords=t(l.coords), num=int(l.num))
-                     for l in geo.levels),
-        stem=plan(geo.stem, caps[0], "stem.fwd"),
+        levels=levels, stem=plan(geo.stem, caps[0], "stem.fwd"),
         self3=tuple(plan(p, caps[l], f"self3[{l}].fwd", geo.levels[l].num)
                     for l, p in enumerate(geo.self3)),
-        down=tuple(with_edge_layouts(
-            DownPlan(fwd=t(d.fwd), child_parent=t(d.child_parent),
-                     child_offset=t(d.child_offset)),
-            int(geo.levels[e].num), int(geo.levels[e + 1].num))
-            for e, d in enumerate(geo.down)))
+        down=down, serial=serial)

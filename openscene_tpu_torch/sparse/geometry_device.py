@@ -62,6 +62,7 @@ import torch
 
 from ..utils.profiling import span
 from .edge_conv import with_edge_layouts
+from .serialize import serialize_levels
 from .stencil_conv import build_conv_skip
 from .types import (ConvPlan, DownPlan, LevelGeometry, UNetGeometry,
                     flip_permutation, stencil_offsets)
@@ -318,7 +319,8 @@ def build_geometry_parts(coords: torch.Tensor, num, caps: Sequence[int],
                          stem_kernel: int = 5, num_levels: int = 5,
                          windows: bool = False, stem_occupancy: bool = False,
                          n_scenes: Optional[int] = None,
-                         grid_dims0: Optional[Tuple[int, int, int]] = None):
+                         grid_dims0: Optional[Tuple[int, int, int]] = None,
+                         serial: Optional[Tuple[int, int]] = None):
     """The UNet geometry of a padded level-0 batch, built on ``coords``'
     device.  Returns ``(UNetGeometry, overflow)``: each level's ``num`` and
     ``overflow`` are 0-d tensors (:func:`with_host_counts` reads them with
@@ -332,7 +334,10 @@ def build_geometry_parts(coords: torch.Tensor, num, caps: Sequence[int],
     constant-input model.  ``n_scenes`` switches the stencil probing to the
     occupancy grid of :mod:`.grid`, sized by ``grid_dims0`` (level-0
     extents, default ``grid.DEFAULT_DIMS0``).  ``overflow`` is set when a
-    coarse level outgrows its cap or a scene leaves the grid."""
+    coarse level outgrows its cap or a scene leaves the grid.
+    ``serial``: ``(patch, scenes a batch)`` of a serialized model, whose
+    orders and patch layouts (``serialize.serialize_levels``) go into
+    ``geo.serial``; None (the UNets) builds none."""
     if windows:
         raise NotImplementedError(
             "window plans are layout devices of the JAX package's TPU "
@@ -398,7 +403,9 @@ def build_geometry_parts(coords: torch.Tensor, num, caps: Sequence[int],
     downs = [with_edge_layouts(d, levels[e].num, levels[e + 1].num)
              for e, d in enumerate(downs)]
     geo = UNetGeometry(levels=tuple(levels), stem=stem, self3=tuple(self3),
-                       down=tuple(downs), stem_occ=stem_occ)
+                       down=tuple(downs), stem_occ=stem_occ,
+                       serial=(() if serial is None else
+                               serialize_levels(levels, downs, *serial)))
     return geo, overflow
 
 

@@ -182,6 +182,8 @@ class UNetGeometry(NamedTuple):
     # set by the device builder for constant-input models so the k=5 stem
     # never materializes its (K, cap0) int32 index plan
     ewplans: Tuple = ()  # per-down-edge window plans (empty in the port)
+    serial: Tuple = ()  # per-level ``serialize.LevelSerial`` of a
+    # serialized model (Point Transformer V3), built where it asks for them
 
 
 def stencil_offsets(kernel_size: int, dimension: int = 3) -> np.ndarray:

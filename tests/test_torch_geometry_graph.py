@@ -194,7 +194,7 @@ class _StubStep:
     """A raw step that records what it was made with, and its release."""
 
     def __init__(self, step, caps, n_scenes=None, grid_dims0=None,
-                 pool=None):
+                 pool=None, batch_scenes=1):
         self.caps, self.n_scenes, self.pool = caps, n_scenes, pool
         self.released = False
 

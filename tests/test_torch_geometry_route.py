@@ -6,7 +6,9 @@ Each of its four consumers (the trainer's step, the epoch-end export, the
 zero-shot scene, the seg scene) builds its geometry through
 ``build_on_card``, once a batch or scene, and never calls its host builder
 when the build fits.  A build forced to report an overflow goes to that
-consumer's host builder once and counts once.
+consumer's host builder once and counts once; the epoch-end export of a
+batch the step has counted counts apart, and moves no counter of the
+steps.
 """
 
 import numpy as np
@@ -51,6 +53,18 @@ def calls(monkeypatch):
     return calls
 
 
+class _Exports:
+    """The epoch-end export's count: its host builds, apart from the
+    steps'."""
+
+    def __init__(self, geometry):
+        self.geometry = geometry
+
+    @property
+    def overflows(self):
+        return self.geometry.export_overflows
+
+
 def _consumer(which, synth, tmp_path):
     """``(run, owner)``: one call of the consumer, and the object whose
     ``overflows`` counts its host fallbacks."""
@@ -62,7 +76,7 @@ def _consumer(which, synth, tmp_path):
         batch = next(tr._epoch_batches())
         if which == "train_step":
             return lambda: tr.train_step(batch), tr
-        return lambda: tr._epoch_end_viz(0, batch), tr
+        return lambda: tr._epoch_end_viz(0, batch), _Exports(tr.geometry)
     sample = Point3DLoader(datapath_prefix=d3, voxel_size=0.1, split="val",
                            aug=False, eval_all=True, seed=1).get(0)
     gen = torch.Generator().manual_seed(0)
@@ -98,3 +112,24 @@ def test_consumer_builds_once_and_falls_back_once(synth, tmp_path, head32,
         assert np.isfinite(out[0]).all() and len(out[0]) == len(out[1])
     else:
         assert (tmp_path / "result" / "last" / "pred_1.ply").exists()
+
+
+@pytest.mark.parametrize("overflow", [False, True],
+                         ids=["fits", "overflows"])
+def test_step_then_export_count_the_batch_once(synth, tmp_path, head32,
+                                               calls, overflow):
+    """The epoch's last batch, stepped and then exported: two builds, but
+    the overflow streak and ``overflows`` rise once for it (the export
+    counts apart, in ``export_overflows``), as the JAX trainer's streak,
+    which only its train loop moves."""
+    tr = D.DistillTrainer(_trainer_cfg(
+        synth, tmp_path, device_geometry="on", evaluate=False,
+        voxel_size=0.1), device="cpu")
+    batch = next(tr._epoch_batches())
+    calls["force"] = overflow
+    tr.train_step(batch)
+    tr._epoch_end_viz(0, batch)
+    assert calls["build"] == 2 and calls["host"] == 2 * int(overflow)
+    assert tr.overflows == tr.geometry.overflow_streak == int(overflow)
+    assert tr.geometry.export_overflows == int(overflow)
+    assert (tmp_path / "result" / "last" / "pred_1.ply").exists()

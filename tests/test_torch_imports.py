@@ -379,7 +379,8 @@ def test_wgrad_split_covers_the_rows():
 
 def test_kernel_build_is_content_hashed(monkeypatch):
     assert _build.sources() == ["gather_gemm_bwd", "gather_gemm_fwd",
-                                "masked_bn", "pack_pairs_t", "up_conv_fwd"]
+                                "masked_bn", "pack_pairs_t", "patch_attn",
+                                "up_conv_fwd"]
     path = _build.library_path("gather_gemm_fwd")
     assert path.startswith(_build.BUILD_DIR)
     assert path == _build.library_path("gather_gemm_fwd")
